@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/H100 port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases, each of which raises (non-zero exit) on failure:
+  1. card      — name, power limit, torch and CUDA versions;
+  2. build     — K1–K3 (superlu_dist_tpu_torch/csrc/*.cu) with nvcc for
+                 sm_90a, one nvcc per source, all started together;
+  3. kernels   — each kernel against its plain PyTorch version on the
+                 card, float32 and float64, at shapes taken from the
+                 k=48 schedule (its most frequent bucket and its
+                 largest), timed beside the plain version, one PyTorch
+                 library call where one computes the same function, and
+                 the bound (bytes over 3.35 TB/s or flops over 67
+                 TFLOP/s, whichever is larger);
+  4. main path — gssvx(Options(), a, b) on laplacian_3d(48) in float64,
+                 with every kernel launch count set to 0 just before and
+                 read just after (each must be > 0); berr ≤ 64·eps(f64);
+  5. mixed     — the same matrix refactored in float32 (solve_dtype
+                 float32, float64 refinement), converging without
+                 escalation;
+  6. unsym     — convection_diffusion_2d(200) in float64;
+  7. the kernels line, the card line, and the contract line last.
+Everything is made from fixed seeds.  Details go to
+chiprun_out/chip_smoke.json.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(HERE, "chiprun_out")
+
+# H100 SXM published peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67
+# TFLOP/s float32 outside the tensor cores and 67 TFLOP/s float64 on
+# the tensor cores (the larger float64 rate, so the bound stays a
+# lower bound)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+# kernel vs plain version, max |diff| / max |plain|: rounding order
+# differs (substitution vs Newton inverses, atomics vs ordered adds)
+TOL = {"float32": 1e-4, "float64": 1e-10}
+BERR_MAX = 64 * 2.220446049250313e-16
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def time_cuda(fn, reps=5, setup=None):
+    """Median milliseconds of `fn` over `reps` runs, CUDA events around
+    each run; `setup` (untimed) runs before each."""
+    import torch
+    if setup is not None:
+        setup()
+    fn()                                    # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def bound_ms(flops: float, nbytes: float, dtype: str):
+    tf = flops / PEAK_FLOPS[dtype]
+    tb = nbytes / HBM_BYTES_PER_S
+    return max(tf, tb) * 1e3, ("operations" if tf > tb else "bytes")
+
+
+def rel_err(a, b) -> tuple:
+    d = float((a - b).abs().max())
+    s = float(b.abs().max()) or 1.0
+    return d, d / s
+
+
+# --------------------------------------------------------------------
+# the main path
+# --------------------------------------------------------------------
+
+def counters():
+    from superlu_dist_tpu_torch.ops import ea_scatter, lsum, panel_lu
+    return {"panel_lu": panel_lu.partial_lu_batch,
+            "ea_scatter": ea_scatter.ea_scatter_add,
+            "lsum": lsum.lsum_panel}
+
+
+def drive(label, options, a, lu=None, seed=0):
+    """One gssvx call through the user entry point, with the kernel
+    launch counts set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+    import superlu_dist_tpu_torch as st
+    xtrue = np.random.default_rng(seed).standard_normal(a.n)
+    b = a.to_scipy() @ xtrue
+    cs = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in cs.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    x, lu, stats = st.gssvx(options, a, b, lu=lu)
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in cs.items()}
+    relerr = float(np.linalg.norm(x - xtrue) / np.linalg.norm(xtrue))
+    u = stats.utime
+    rec = {
+        "label": label, "n": int(a.n), "nnz": int(a.nnz),
+        "factor_dtype": options.factor_dtype,
+        "wall_s": wall,
+        "plan_s": sum(u[p] for p in ("EQUIL", "ROWPERM", "COLPERM",
+                                     "ETREE", "SYMBFACT", "DIST")),
+        "sched_s": u["SCHED"],
+        "factor_s": u["FACT"] + u["FACT_ESC"],
+        "solve_s": u["SOLVE"], "refine_s": u["REFINE"],
+        "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+        "berr": float(stats.berr), "relerr": relerr,
+        "refine_steps": stats.refine_steps,
+        "escalations": stats.escalations,
+        "tiny_pivots": stats.tiny_pivots,
+        "factor_flops": float(lu.plan.factor_flops),
+        "groups": len(lu.device_lu.schedule.groups),
+        "launches": launches,
+    }
+    log(f"[{label}] " + json.dumps(rec))
+    if not np.all(np.isfinite(x)) or x.shape != (a.n,):
+        raise RuntimeError(f"{label}: bad solution")
+    if not stats.berr <= BERR_MAX:
+        raise RuntimeError(f"{label}: berr {stats.berr} > {BERR_MAX}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise RuntimeError(f"{label}: kernel {k} was never launched")
+    return lu, rec
+
+
+# --------------------------------------------------------------------
+# kernels against their plain versions
+# --------------------------------------------------------------------
+
+def _tdt(name):
+    import torch
+    return {"float32": torch.float32, "float64": torch.float64}[name]
+
+
+def check_panel_lu(N, mb, wb, dtype):
+    import torch
+    from superlu_dist_tpu_torch.ops import dense_lu, panel_lu
+    tdt = _tdt(dtype)
+    g = torch.Generator(device="cuda").manual_seed(N * 7919 + mb)
+    F0 = torch.randn(N, mb, mb, generator=g, dtype=tdt, device="cuda")
+    F0 += mb * torch.eye(mb, dtype=tdt, device="cuda")
+    # plant one exactly-tiny pivot in front 0 (row/col 3 decoupled)
+    F0[0, 3, :3] = 0
+    F0[0, :3, 3] = 0
+    F0[0, 3, 3] = 1e-30
+    thresh = float(torch.finfo(tdt).eps) ** 0.5 * float(F0.abs().max())
+    F1 = F0.clone()
+    F2 = F0.clone()
+    _, t1, z1 = panel_lu.partial_lu_batch(F1, thresh, wb=wb)
+    _, t2, z2 = dense_lu.partial_lu_batch(F2, thresh, wb=wb)
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(F1, F2)
+    if int(t1) != int(t2) or int(z1) != int(z2) or int(t1) < 1:
+        raise RuntimeError(f"panel_lu counters differ: kernel "
+                           f"({int(t1)}, {int(z1)}) plain "
+                           f"({int(t2)}, {int(z2)})")
+    if not rel <= TOL[dtype]:
+        raise RuntimeError(f"panel_lu {dtype} ({N},{mb},{wb}) rel err "
+                           f"{rel:.3e} > {TOL[dtype]}")
+    reset = lambda: F1.copy_(F0)                        # noqa: E731
+    ms = time_cuda(lambda: panel_lu.partial_lu_batch(F1, thresh, wb=wb),
+                   setup=reset)
+    plain_ms = time_cuda(
+        lambda: dense_lu.partial_lu_batch(F1, thresh, wb=wb), reps=3,
+        setup=reset)
+    flops = N * sum((mb - k - 1) + 2.0 * (mb - k - 1) ** 2
+                    for k in range(wb))
+    nbytes = 2.0 * N * mb * mb * F0.element_size()
+    b_ms, b_by = bound_ms(flops, nbytes, dtype)
+    return {"shape": [N, mb, wb], "dtype": dtype, "max_abs_err": abs_err,
+            "rel_err": rel, "tol": TOL[dtype], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def check_ea_scatter(sched, g, bucket, dtype):
+    import torch
+    from superlu_dist_tpu_torch.ops import ea_scatter
+    tdt = _tdt(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(g.mb + bucket.rc_b)
+    F0 = torch.randn(g.n_loc, g.mb, g.mb, generator=gen, dtype=tdt,
+                     device="cuda")
+    upd = torch.randn(sched.upd_total + sched.upd_pad, generator=gen,
+                      dtype=tdt, device="cuda")
+    F1 = F0.clone()
+    F2 = F0.clone()
+    ea_scatter.ea_scatter_add(F1, upd, bucket)
+    ea_scatter.ea_scatter_add_plain(F2, upd, bucket)
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(F1, F2)
+    if not rel <= TOL[dtype]:
+        raise RuntimeError(f"ea_scatter {dtype} rc_b={bucket.rc_b} rel "
+                           f"err {rel:.3e} > {TOL[dtype]}")
+    reset = lambda: F1.copy_(F0)                        # noqa: E731
+    ms = time_cuda(lambda: ea_scatter.ea_scatter_add(F1, upd, bucket),
+                   setup=reset)
+    plain_ms = time_cuda(
+        lambda: ea_scatter.ea_scatter_add_plain(F1, upd, bucket),
+        setup=reset)
+    dst, src = ea_scatter.flat_indices(F1, bucket)
+    vals = upd[src]
+    lib_ms = time_cuda(lambda: F1.view(-1).index_add_(0, dst, vals),
+                       setup=reset)
+    live = int(dst.numel())
+    it = F0.element_size()
+    nrec = int(bucket.so.numel())
+    nbytes = (3.0 * live * it + nrec * bucket.rc_b * 8 + nrec * 16
+              + bucket.fronts.numel() * 16)
+    b_ms, b_by = bound_ms(0.0 + live, nbytes, dtype)
+    return {"shape": [nrec, bucket.rc_b, g.mb], "dtype": dtype,
+            "live_lanes": live, "max_abs_err": abs_err, "rel_err": rel,
+            "tol": TOL[dtype],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_lsum(ts, g, gs, R, pdtype, xdtype):
+    import torch
+    from superlu_dist_tpu_torch.ops import lsum
+    tp, tx = _tdt(pdtype), _tdt(xdtype)
+    gen = torch.Generator(device="cuda").manual_seed(g.mb * 31 + R)
+    t, wb, mb, rt = gs.trim, g.wb, g.mb, gs.rtrim
+    Lp = torch.randn(t, mb, wb, generator=gen, dtype=tp,
+                     device="cuda") / wb
+    Li = torch.randn(t, wb, wb, generator=gen, dtype=tp,
+                     device="cuda") / wb
+    L21 = Lp[:, wb:, :]
+    xb = torch.randn(t, wb, R, generator=gen, dtype=tx, device="cuda")
+    bufs = []
+    for _ in range(2):
+        bufs.append((torch.zeros(ts.y_total + 1, R, dtype=tx,
+                                 device="cuda"),
+                     torch.zeros(ts.u_total + 1, R, dtype=tx,
+                                 device="cuda")))
+    (Y1, U1), (Y2, U2) = bufs
+    args = (gs.y_off, gs.u_off, rt)
+    lsum.lsum_panel(Li, L21, xb, Y1, U1, *args)
+    lsum.lsum_panel_plain(Li, L21, xb, Y2, U2, *args)
+    torch.cuda.synchronize()
+    ey = rel_err(Y1, Y2)
+    eu = rel_err(U1, U2)
+    abs_err, rel = max(ey[0], eu[0]), max(ey[1], eu[1])
+    tol = TOL[pdtype] if pdtype == xdtype else TOL["float64"]
+    if not rel <= tol:
+        raise RuntimeError(f"lsum {pdtype}/{xdtype} R={R} rel err "
+                           f"{rel:.3e} > {tol}")
+    ms = time_cuda(lambda: lsum.lsum_panel(Li, L21, xb, Y1, U1, *args))
+    plain_ms = time_cuda(
+        lambda: lsum.lsum_panel_plain(Li, L21, xb, Y2, U2, *args))
+
+    L21c = L21[:, :rt, :]
+
+    def two_bmm():
+        y = torch.bmm(Li, xb)
+        torch.bmm(L21c, y)
+
+    lib_ms = time_cuda(two_bmm) if pdtype == xdtype else None
+    sp, sx = Li.element_size(), xb.element_size()
+    flops = 2.0 * t * (wb * wb + rt * wb) * R
+    nbytes = ((t * wb * wb + t * rt * wb) * sp + t * wb * R * sx
+              + t * (wb + rt) * R * sx)
+    b_ms, b_by = bound_ms(flops, nbytes, xdtype)
+    return {"shape": [t, wb, rt, R], "dtype": f"{pdtype}/{xdtype}",
+            "max_abs_err": abs_err, "rel_err": rel, "tol": tol, "ms": ms,
+            "plain_ms": plain_ms, "ms_over_plain": ms / plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def kernel_checks(plan):
+    from collections import Counter
+    import torch
+    from superlu_dist_tpu_torch.ops import batched, trisolve
+    sched = batched.get_schedule(plan)
+    ts = trisolve.get_trisolve(sched)
+    res = {"panel_lu": [], "ea_scatter": [], "lsum": []}
+
+    # K1: the most frequent (wb, mb) bucket, the largest group and the
+    # group with the most fronts (at k=48 the first two coincide)
+    freq = Counter((g.wb, g.mb) for g in sched.groups).most_common(1)[0][0]
+    g_freq = max((g for g in sched.groups if (g.wb, g.mb) == freq),
+                 key=lambda g: g.n_loc)
+    g_big = max(sched.groups, key=lambda g: (g.mb, g.n_loc))
+    g_many = max(sched.groups, key=lambda g: (g.n_loc, g.mb))
+    shapes = list(dict.fromkeys((g.n_loc, g.mb, g.wb)
+                                for g in (g_freq, g_big, g_many)))
+    for N, mb, wb in shapes:
+        for dt in ("float32", "float64"):
+            r = check_panel_lu(N, mb, wb, dt)
+            log("[kernel panel_lu] " + json.dumps(r))
+            res["panel_lu"].append(r)
+
+    # K2: the most frequent element-bucket width and the bucket with
+    # the most live lanes
+    dev = torch.device("cuda", torch.cuda.current_device())
+    buckets = [(g, b) for g in sched.groups for b in g.dev(dev).ea]
+    rc_freq = Counter(b.rc_b for _, b in buckets).most_common(1)[0][0]
+    pick_f = max(((g, b) for g, b in buckets if b.rc_b == rc_freq),
+                 key=lambda gb: gb[1].so.numel())
+    pick_b = max(buckets, key=lambda gb: gb[1].so.numel()
+                 * gb[1].rc_b ** 2)
+    for g, b in (pick_f, pick_b):
+        for dt in ("float32", "float64"):
+            r = check_ea_scatter(sched, g, b, dt)
+            log("[kernel ea_scatter] " + json.dumps(r))
+            res["ea_scatter"].append(r)
+
+    # K3: forward groups with update rows — most frequent bucket and
+    # the largest — at nrhs 1 and 64, plus the refinement mix
+    fwd = [(g, gs) for g, gs in zip(sched.groups, ts.groups)
+           if gs.rtrim > 0]
+    freq3 = Counter((g.wb, g.mb) for g, _ in fwd).most_common(1)[0][0]
+    f_freq = max(((g, gs) for g, gs in fwd if (g.wb, g.mb) == freq3),
+                 key=lambda p: p[1].trim)
+    f_big = max(fwd, key=lambda p: p[1].trim * p[0].mb * p[0].wb)
+    for g, gs in (f_freq, f_big):
+        for R in (1, 64):
+            for pd, xd in (("float32", "float32"), ("float64", "float64"),
+                           ("float32", "float64")):
+                r = check_lsum(ts, g, gs, R, pd, xd)
+                log("[kernel lsum] " + json.dumps(r))
+                res["lsum"].append(r)
+    # many right-hand sides are K3's open target: its time over the
+    # plain version's at nrhs 64, float64
+    log("[lsum nrhs 64] kernel ms / plain ms, float64: " + json.dumps(
+        {str(r["shape"]): round(r["ms_over_plain"], 3)
+         for r in res["lsum"]
+         if r["shape"][-1] == 64 and r["dtype"] == "float64/float64"}))
+    return res
+
+
+KERNELS = {
+    "panel_lu": ("superlu_dist_tpu_torch/csrc/panel_lu.cu",
+                 "superlu_dist_tpu/ops/pallas_lu.py:329"),
+    "ea_scatter": ("superlu_dist_tpu_torch/csrc/ea_scatter.cu",
+                   "superlu_dist_tpu/ops/pallas_scatter.py:165"),
+    "lsum": ("superlu_dist_tpu_torch/csrc/lsum.cu",
+             "superlu_dist_tpu/ops/pallas_lsum.py:116"),
+}
+
+
+def kernels_line(res, launches):
+    out = []
+    for name, (src, repl) in KERNELS.items():
+        rows = res[name]
+        # the headline row: float64 at the largest shape measured, at
+        # the main path's single right-hand side for lsum
+        f64 = [r for r in rows if r["dtype"] in ("float64",
+                                                 "float64/float64")
+               and (name != "lsum" or r["shape"][-1] == 1)]
+        head = max(f64, key=lambda r: r["bound_ms"])
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": repl, "launches": int(launches[name]),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": head["shape"], "dtype": head["dtype"]})
+    return {"kernels": out}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import _cuda
+    from superlu_dist_tpu_torch.utils import native, testmat
+    t_start = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    report = {}
+
+    # 1. card
+    card = card_line()
+    report["card"] = card
+    report["versions"] = {"python": sys.version.split()[0],
+                          "torch": torch.__version__,
+                          "cuda": torch.version.cuda,
+                          "device": torch.cuda.get_device_name(0)}
+    log("card:", card)
+    log("versions:", json.dumps(report["versions"]))
+
+    # 2. build (the host library too: the planner uses it)
+    b = _cuda.build_all(verbose=True)
+    if not native.available():
+        raise RuntimeError("host library csrc/slu_host.cpp failed to build")
+    report["build_s"] = b["seconds"]
+    with open(os.path.join(OUT_DIR, "build.log"), "w") as f:
+        for name, text in b["log"].items():
+            f.write(f"== {name}\n{text}\n")
+    log(f"build: K1-K3 built in {b['seconds']:.1f} s "
+        "(ptxas report in chiprun_out/build.log)")
+
+    # kernels vs plain versions, at shapes from the k=48 schedule
+    a48 = testmat.laplacian_3d(48)
+    res = kernel_checks(st.plan_factorization(a48))
+    report["kernels"] = res
+
+    # the main path through the user entry point
+    lu48, rec = drive("f64 laplacian_3d(48)", st.Options(), a48)
+    report["main"] = rec
+    opts32 = st.Options(fact=st.Fact.SAME_PATTERN_SAME_ROWPERM,
+                        factor_dtype="float32", solve_dtype="float32")
+    _, rec32 = drive("f32 factor + f64 refine laplacian_3d(48)", opts32,
+                     a48, lu=lu48)
+    if rec32["escalations"]:
+        raise RuntimeError("mixed-precision run escalated")
+    report["mixed"] = rec32
+    del lu48
+    torch.cuda.empty_cache()
+    acd = testmat.convection_diffusion_2d(200)
+    _, recu = drive("f64 convection_diffusion_2d(200)", st.Options(), acd)
+    report["unsym"] = recu
+
+    report["wall_s"] = time.perf_counter() - t_start
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+
+    # 7. the lines the driver reads
+    log(json.dumps(kernels_line(res, rec["launches"])))
+    log(card_line())
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

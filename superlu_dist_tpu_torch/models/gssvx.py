@@ -1,0 +1,338 @@
+"""Expert driver: the pdgssvx analog (SRC/pdgssvx.c:506).
+
+`gssvx(options, A, B)` runs the full pipeline — equilibrate, static
+pivoting row perm, fill-reducing col perm, symbolic plan (host),
+numeric factorization and triangular solves (device), iterative
+refinement (host residuals) — and returns X, the factorization handle
+and statistics.  `factorize`/`solve` expose the two halves for the
+Fact reuse ladder (SamePattern / SamePattern_SameRowPerm / FACTORED,
+SRC/superlu_defs.h:577-598):
+
+    plan = plan_factorization(A, opts)        # once per pattern
+    lu   = factorize(A, plan=plan)            # per value set
+    x    = solve(lu, b)                       # per right-hand side
+
+Every entry point runs on the CUDA device unless the caller passes
+`device="cpu"`; with no card and no explicit request it raises
+(device.NoCudaDeviceError).
+
+Not ported yet (ROADMAP queue 1): complex systems (item 10), the
+host backend (ref_multifrontal), the perturbation ledger, health
+events, the condition gate, memory watermarks, get_diag_u and
+query_space.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Optional
+
+import numpy as np
+
+from ..device import resolve_device
+from ..numerics.errors import InvalidInputError
+from ..ops import batched
+from ..options import ColPerm, Fact, IterRefine, Options, Trans
+from ..plan import plan as plan_mod
+from ..plan.plan import FactorPlan
+from ..sparse import CSRMatrix
+from ..utils.stats import Stats
+
+_COMPLEX_TODO = ("complex systems are not ported yet (ROADMAP queue 1 "
+                 "item 10, complex and pair lanes)")
+
+
+@dataclasses.dataclass
+class LUFactorization:
+    """Factorization handle: plan + device factors (LUstruct analog,
+    SRC/superlu_ddefs.h:266-271)."""
+    plan: FactorPlan
+    device_lu: Optional[batched.StagedLU] = None
+    a: Optional[CSRMatrix] = None         # kept for refinement residuals
+    stats: Optional[Stats] = None
+    options: Optional[Options] = None     # effective numeric options
+    # refinement operands (A, |A| in refine precision), built once per
+    # handle; dataclasses.replace copies share the same container
+    refine_cache: dict = dataclasses.field(default_factory=dict,
+                                           repr=False, compare=False)
+    cache_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+
+    @property
+    def n(self) -> int:
+        return self.plan.n
+
+    @property
+    def device(self):
+        return self.device_lu.device
+
+    @property
+    def effective_options(self) -> Options:
+        return self.options or self.plan.options
+
+
+def _reject_complex(*dtypes) -> None:
+    for dt in dtypes:
+        if np.issubdtype(np.dtype(dt), np.complexfloating):
+            raise NotImplementedError(_COMPLEX_TODO)
+
+
+def plan_factorization(a: CSRMatrix, options: Options | None = None,
+                       stats: Stats | None = None, device=None,
+                       user_perm_r: np.ndarray | None = None,
+                       user_perm_c: np.ndarray | None = None
+                       ) -> FactorPlan:
+    """The host plan for `a`, bound to the device its factorizations
+    will run on."""
+    dev = resolve_device(device)
+    _reject_complex(a.dtype)
+    plan = plan_mod.plan_factorization(a, options, stats=stats,
+                                       user_perm_r=user_perm_r,
+                                       user_perm_c=user_perm_c)
+    plan.device = str(dev)
+    return plan
+
+
+def factorize(a: CSRMatrix, options: Options | None = None,
+              plan: FactorPlan | None = None,
+              stats: Stats | None = None, device=None,
+              user_perm_r: np.ndarray | None = None,
+              user_perm_c: np.ndarray | None = None,
+              _phase: str = "FACT") -> LUFactorization:
+    # caller's options win (numeric knobs may differ from the cached
+    # plan's); fall back to the plan's when none are given
+    if options is None:
+        options = plan.options if plan is not None else Options()
+    stats = stats if stats is not None else Stats()
+    if device is None and plan is not None:
+        device = plan.device
+    dev = resolve_device(device)
+    _reject_complex(a.dtype, options.factor_dtype)
+    if plan is None:
+        plan = plan_factorization(a, options, stats=stats, device=dev,
+                                  user_perm_r=user_perm_r,
+                                  user_perm_c=user_perm_c)
+    scaled = plan.scaled_values(a)
+    fdt = np.dtype(options.factor_dtype)
+    with stats.timer("SCHED"):
+        # the level schedule and its device index sets, built once per
+        # plan (SAME_PATTERN_SAME_ROWPERM and escalation reuse them)
+        batched.get_schedule(plan).to_device(dev)
+    with stats.timer(_phase):
+        device_lu = batched.factorize_device(plan, scaled, dtype=fdt,
+                                             device=dev)
+    stats.tiny_pivots += int(device_lu.tiny_pivots)
+    stats.add_ops(_phase, plan.factor_flops)
+    stats.lu_nnz = plan.lu_nnz()
+    stats.lu_bytes = stats.lu_nnz * fdt.itemsize
+    stats.note_factor_event(tiny_pivots=device_lu.tiny_pivots,
+                            dtype=options.factor_dtype)
+    return LUFactorization(plan=plan, device_lu=device_lu, a=a,
+                           stats=stats, options=options)
+
+
+def _solve_factored(lu: LUFactorization, b_factor_order: np.ndarray):
+    """Triangular solves in factor ordering/scaling."""
+    return batched.solve_device(lu.device_lu, b_factor_order)
+
+
+def _solve_factored_trans(lu: LUFactorization,
+                          b_factor_order: np.ndarray):
+    """Mᵀ·y = b in factor ordering (forward Uᵀ, backward Lᵀ)."""
+    return batched.solve_device_trans(lu.device_lu, b_factor_order)
+
+
+def solve(lu: LUFactorization, b: np.ndarray,
+          stats: Stats | None = None) -> np.ndarray:
+    """Solve A·x = b for one or many right-hand sides (b: (n,) or
+    (n, nrhs)).  Applies scalings/permutations, the factored solves,
+    and iterative refinement per options (pdgstrs + pdgsrfs analog,
+    SRC/pdgstrs.c:1035, SRC/pdgsrfs.c:124)."""
+    plan = lu.plan
+    stats = stats or lu.stats or Stats()
+    options = lu.effective_options
+    b = np.asarray(b)
+    if b.shape[0] != plan.n:
+        raise ValueError(
+            f"b has {b.shape[0]} rows but the matrix is {plan.n}×{plan.n}")
+    _reject_complex(b.dtype)
+    squeeze = b.ndim == 1
+    bb = b[:, None] if squeeze else b
+    if options.solve_dtype is not None:
+        # pin the sweep precision instead of letting the caller's RHS
+        # dtype promote the whole solve (an fp32 pipeline must not pay
+        # fp64 sweeps because a client sent a float64 buffer)
+        bb = bb.astype(np.dtype(options.solve_dtype))
+
+    if options.trans == Trans.CONJ:
+        # real systems: Aᴴ = Aᵀ
+        lu_t = dataclasses.replace(
+            lu, options=options.replace(trans=Trans.TRANS))
+        x = solve(lu_t, bb, stats=stats)
+        return x[:, 0] if squeeze else x
+
+    if options.trans == Trans.NOTRANS:
+        # M = Pf_r·Dr·A·Dc·Pf_cᵀ:  b' = Pf_r·Dr·b ; x = Dc·Pf_cᵀ·y
+        def to_factor_rhs(v):
+            scaled = v * plan.row_scale[:, None]
+            out = np.empty_like(scaled)
+            out[plan.final_row] = scaled
+            return out
+
+        def from_factor_sol(y):
+            out = y[plan.final_col]
+            return out * plan.col_scale[:, None]
+
+        solver = _solve_factored
+    else:
+        # (Aᵀ)⁻¹ = Dr·Pf_rᵀ·M⁻ᵀ·Pf_c·Dc: the roles of (row perm, row
+        # scale) and (col perm, col scale) swap around the Mᵀ solve
+        def to_factor_rhs(v):
+            scaled = v * plan.col_scale[:, None]
+            out = np.empty_like(scaled)
+            out[plan.final_col] = scaled
+            return out
+
+        def from_factor_sol(y):
+            out = y[plan.final_row]
+            return out * plan.row_scale[:, None]
+
+        solver = _solve_factored_trans
+
+    with stats.timer("SOLVE"):
+        x = from_factor_sol(solver(lu, to_factor_rhs(bb)))
+
+    if options.iter_refine != IterRefine.NOREFINE and lu.a is not None:
+        from .refine import iterative_refine
+        with stats.timer("REFINE"):
+            x, berr, steps, stalled = iterative_refine(
+                lu, bb, x, solver, to_factor_rhs, from_factor_sol,
+                trans=(options.trans == Trans.TRANS))
+        stats.berr = berr
+        stats.refine_steps += steps
+        stats.refine_stalled = stalled
+
+    return x[:, 0] if squeeze else x
+
+
+def gssvx(options: Options | None, a: CSRMatrix, b: np.ndarray,
+          stats: Stats | None = None,
+          lu: LUFactorization | None = None, device=None,
+          user_perm_r: np.ndarray | None = None,
+          user_perm_c: np.ndarray | None = None):
+    """One-call driver.  Returns (x, lu, stats).  Pass `lu` with
+    options.fact=FACTORED to reuse a prior factorization, or with
+    options.fact=SAME_PATTERN* to re-factor new values reusing the
+    plan.  user_perm_r/user_perm_c feed RowPerm.MY_PERMR /
+    ColPerm.MY_PERMC."""
+    options = options or Options()
+    stats = stats if stats is not None else Stats()
+    if device is None and lu is not None:
+        device = lu.device
+    dev = resolve_device(device)
+    _validate_system(a, b)
+    _reject_complex(a.dtype, np.asarray(b).dtype)
+    return _gssvx_impl(options, a, b, stats, lu, dev, user_perm_r,
+                       user_perm_c)
+
+
+def _validate_system(a, b) -> None:
+    """Typed front-door rejection of malformed systems
+    (InvalidInputError, a ValueError)."""
+    n = int(getattr(a, "n", 0))
+    if n == 0:
+        raise InvalidInputError("empty system: A is 0x0")
+    b = np.asarray(b)
+    if b.ndim not in (1, 2) or b.shape[0] != n:
+        raise InvalidInputError(
+            f"b has shape {b.shape} but the matrix is {n}x{n}")
+    if b.size == 0:
+        raise InvalidInputError("empty right-hand side: b has 0 "
+                                "columns")
+    vals = getattr(a, "data", None)
+    if vals is not None and not bool(np.isfinite(vals).all()):
+        raise InvalidInputError(
+            "non-finite entries in A: a NaN/Inf value would poison "
+            "the factors (GESP has no runtime pivoting to catch it); "
+            "refused before paying a factorization")
+    if not bool(np.isfinite(b).all()):
+        raise InvalidInputError("non-finite entries in b")
+
+
+def _gssvx_impl(options, a, b, stats, lu, dev, user_perm_r,
+                user_perm_c):
+    if options.fact in (Fact.FACTORED, Fact.SAME_PATTERN,
+                        Fact.SAME_PATTERN_SAME_ROWPERM) and lu is None:
+        raise ValueError(f"options.fact={options.fact.name} requires "
+                         "an existing lu")
+    if options.fact == Fact.FACTORED:
+        # honor the caller's solve-time knobs on the reused handle;
+        # factorization-describing knobs keep describing the factors
+        from ..options import merge_solve_options
+        lu = dataclasses.replace(
+            lu, options=merge_solve_options(lu.effective_options,
+                                            options))
+    elif options.fact == Fact.SAME_PATTERN:
+        # reuse only the fill-reducing column permutation; recompute
+        # equilibration, row perm and the symbolic plan for the new
+        # values (SRC/superlu_defs.h:584-588)
+        opts2 = options.replace(col_perm=ColPerm.MY_PERMC)
+        plan = plan_factorization(a, opts2, stats=stats, device=dev,
+                                  user_perm_c=lu.plan.perm_c)
+        lu = factorize(a, opts2, plan=plan, stats=stats, device=dev)
+    elif options.fact == Fact.SAME_PATTERN_SAME_ROWPERM:
+        # reuse perms, scalings and the whole symbolic plan; refresh
+        # numeric values only
+        lu = factorize(a, options, plan=lu.plan, stats=stats,
+                       device=dev)
+    else:
+        lu = factorize(a, options, stats=stats, device=dev,
+                       user_perm_r=user_perm_r, user_perm_c=user_perm_c)
+    x = solve(lu, b, stats=stats)
+    # precision-escalation ladder (precision/policy.py): when a
+    # low-precision factor fails its refinement contract
+    # (cond(A)·eps_factor ≥ 1: berr stagnates far above the refine
+    # class), re-factor one rung up; the plan is value-identical
+    # across rungs, so it is reused outright.  Terminates: eps(factor)
+    # strictly decreases toward the refine_dtype ceiling.
+    from ..precision.policy import next_factor_dtype
+    while _should_escalate(options, lu, stats):
+        cur = lu.effective_options.factor_dtype
+        nxt = next_factor_dtype(cur, ceiling=options.refine_dtype)
+        if nxt is None:
+            break
+        stats.escalations += 1
+        lu = factorize(a, options.replace(factor_dtype=nxt),
+                       plan=lu.plan, stats=stats, device=dev,
+                       _phase="FACT_ESC")
+        x = solve(lu, b, stats=stats)
+    return x, lu, stats
+
+
+def _should_escalate(options: Options, lu: LUFactorization,
+                     stats: Stats) -> bool:
+    if options.fact == Fact.FACTORED:
+        # solve-only rung: never silently re-pay a factorization
+        return False
+    return _escalation_core(options, lu.effective_options.factor_dtype,
+                            stats)
+
+
+# refinement-contract class boundary: converged means berr within 6
+# bits of eps(refine_dtype); a stalled factor sits orders above it
+_ESC_BERR_SLACK = 64.0
+
+
+def _escalation_core(options: Options, factor_dtype: str,
+                     stats: Stats) -> bool:
+    if not options.escalate:
+        return False
+    if options.iter_refine == IterRefine.NOREFINE:
+        return False
+    f_eps = float(np.finfo(np.dtype(factor_dtype)).eps)
+    r_eps = float(np.finfo(np.dtype(options.refine_dtype)).eps)
+    if f_eps <= r_eps:            # nothing higher to escalate to
+        return False
+    # a NaN/Inf berr (overflowed low-precision factor) must escalate
+    return not (stats.berr <= _ESC_BERR_SLACK * r_eps)

@@ -1,0 +1,259 @@
+"""FactorPlan: the once-per-pattern preprocessing product.
+
+This object is the analog of everything pdgssvx computes before the
+numeric factorization (SRC/pdgssvx.c:718-1166: equil → rowperm →
+colperm → etree → symbfact → distribute) bundled into one cacheable
+value: the static "plan" keyed by the sparsity pattern.  The Fact
+reuse ladder (SRC/superlu_defs.h:577-598) falls out naturally —
+SamePattern reuses the plan minus row perm/scalings,
+SamePattern_SameRowPerm reuses all of it, FACTORED additionally reuses
+the device factors (models/gssvx.py).  The whole plan is host numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import scipy.sparse as sp
+
+from ..options import Options
+from ..sparse import CSRMatrix
+from ..utils.stats import Stats
+from . import colperm as colperm_mod
+from . import equilibrate, rowperm
+from .etree import (col_counts_postordered, etree_symmetric, postorder,
+                    relabel_tree)
+from .frontal import FrontalPlan, build_frontal_plan, front_flops
+from .supernodes import find_supernodes
+from .symbolic import amalgamate, symbolic_factorize
+
+
+@dataclasses.dataclass
+class FactorPlan:
+    n: int
+    options: Options
+    # scalings (identity when Equil decided not to apply)
+    equed: str
+    row_scale: np.ndarray
+    col_scale: np.ndarray
+    # permutations, "newpos = perm[old]" convention
+    perm_r: np.ndarray        # static pivoting row perm
+    perm_c: np.ndarray        # fill-reducing col perm (pre-postorder)
+    post: np.ndarray          # postorder (old label of new position)
+    final_row: np.ndarray     # composed: original row -> factor row
+    final_col: np.ndarray     # composed: original col -> factor col
+    # original-matrix COO pattern (assembly references this order)
+    coo_rows: np.ndarray
+    coo_cols: np.ndarray
+    # symbolic + frontal structure
+    frontal: FrontalPlan
+    anorm: float
+    # factorization flops of the UNAMALGAMATED structure — the honest
+    # useful-work denominator for GFLOP/s reporting: amalgamation
+    # (symbolic.amalgamate) grows executed flops by design (explicit
+    # zeros computed for fewer, larger fronts), so
+    # frontal.factor_flops over-counts useful work at high tau.
+    true_factor_flops: float = 0.0
+    # the device the plan's factorizations run on (set by the entry
+    # point models/gssvx.plan_factorization; the plan itself is host
+    # numpy)
+    device: str | None = None
+
+    @property
+    def nsuper(self) -> int:
+        return self.frontal.nsuper
+
+    @property
+    def factor_flops(self) -> float:
+        return self.frontal.factor_flops
+
+    def lu_nnz(self) -> int:
+        return self.frontal.sym.lu_nnz()
+
+    def scaled_values(self, a: CSRMatrix) -> np.ndarray:
+        """Scaled value array Dr·A·Dc in the plan's COO order — the
+        value-refresh entry point for SamePattern reuse."""
+        vals = a.data
+        return (vals * self.row_scale[self.coo_rows]
+                * self.col_scale[self.coo_cols])
+
+
+def _check_structure(a: CSRMatrix, coo_rows, coo_cols) -> None:
+    """Raise typed StructurallySingularError for rows/columns with no
+    STORED entry.  Pattern-based on purpose: an explicitly stored
+    zero keeps the row structurally alive (the reference's semantics
+    — an exact-zero pivot with replacement off is a FACTOR-time
+    ZeroDivisionError, not a plan-time refusal), while a pattern-empty
+    row admits no LU under any values.  numerics/errors.py imports
+    nothing back from the package, so plan/ can raise it cycle-free."""
+    from ..numerics.errors import StructurallySingularError
+    row_hit = np.zeros(a.m, dtype=bool)
+    row_hit[coo_rows] = True
+    col_hit = np.zeros(a.n, dtype=bool)
+    col_hit[coo_cols] = True
+    if row_hit.all() and col_hit.all():
+        return
+    empty_rows = tuple(int(i) for i in np.flatnonzero(~row_hit)[:32])
+    empty_cols = tuple(int(i) for i in np.flatnonzero(~col_hit)[:32])
+    what = []
+    if empty_rows:
+        what.append(f"empty rows {list(empty_rows)}")
+    if empty_cols:
+        what.append(f"empty columns {list(empty_cols)}")
+    raise StructurallySingularError(
+        "matrix is structurally singular: " + ", ".join(what)
+        + " (no stored entries) — no pivoting strategy can factor "
+        "it; refused at plan time before any numeric work",
+        empty_rows=empty_rows, empty_cols=empty_cols)
+
+
+def plan_factorization(a: CSRMatrix, options: Options | None = None,
+                       stats: Stats | None = None,
+                       user_perm_r: np.ndarray | None = None,
+                       user_perm_c: np.ndarray | None = None,
+                       autotune: bool | None = None) -> FactorPlan:
+    """Run the full preprocessing pipeline on the host.  With
+    `autotune` (default: options.autotune), the padding bucket grids
+    are refit to this pattern's supernode population (plan/autotune.py)
+    and the frontal maps rebuilt — a once-per-pattern cost, like the
+    rest of the plan."""
+    options = options or Options()
+    if autotune is None:
+        autotune = bool(getattr(options, "autotune", False))
+    stats = stats if stats is not None else Stats()
+    if a.m != a.n:
+        raise ValueError("solver requires a square matrix")
+    n = a.n
+
+    coo_rows, coo_cols, _ = a.to_coo()
+
+    # structural-singularity gate (numerics/): a row or column with no
+    # (nonzero) entries is singular BEFORE any arithmetic — detectable
+    # here for the cost of two bincounts, and a typed error beats the
+    # equilibration ValueError (which only fired with options.equil on;
+    # with it off the defect used to slip through to the factor kernels
+    # and come back as tiny-pivot garbage)
+    _check_structure(a, coo_rows, coo_cols)
+
+    # [Equil] (pdgssvx.c:718,736)
+    with stats.timer("EQUIL"):
+        if options.equil:
+            r, c, rowcnd, colcnd, amax = equilibrate.gsequ(a)
+            equed, r_eff, c_eff = equilibrate.laqgs(
+                a, r, c, rowcnd, colcnd, amax)
+        else:
+            equed = "N"
+            r_eff = np.ones(n)
+            c_eff = np.ones(n)
+    scaled_vals = a.data * r_eff[coo_rows] * c_eff[coo_cols]
+    a_scaled = CSRMatrix(a.m, a.n, a.indptr, a.indices, scaled_vals)
+
+    # [RowPerm] (pdgssvx.c:815)
+    with stats.timer("ROWPERM"):
+        perm_r = rowperm.get_perm_r(a_scaled, options.row_perm, user_perm_r)
+
+    # [ColPerm] on Pr·A (pdgssvx.c:1016-1029)
+    with stats.timer("COLPERM"):
+        a_rp = sp.coo_matrix(
+            (scaled_vals, (perm_r[coo_rows], coo_cols)), shape=(n, n)).tocsr()
+        perm_c = colperm_mod.get_perm_c(
+            CSRMatrix(n, n, a_rp.indptr.astype(np.int64),
+                      a_rp.indices.astype(np.int64), a_rp.data),
+            options.col_perm, user_perm_c,
+            nd_threads=options.nd_threads)
+
+    anorm = float(np.max(np.abs(scaled_vals))) if len(scaled_vals) else 1.0
+    plan = plan_from_perms(n, options, stats, equed, r_eff, c_eff,
+                           perm_r, perm_c, coo_rows, coo_cols, anorm,
+                           autotune=autotune)
+    return plan
+
+
+def plan_from_perms(n: int, options: Options, stats: Stats,
+                    equed: str, r_eff: np.ndarray, c_eff: np.ndarray,
+                    perm_r: np.ndarray, perm_c: np.ndarray,
+                    coo_rows: np.ndarray, coo_cols: np.ndarray,
+                    anorm: float, symbfact_fn=None,
+                    autotune: bool | None = None) -> FactorPlan:
+    """The permutation-independent back half of the pipeline: etree →
+    postorder → symbfact → frontal maps → FactorPlan.  ONE
+    implementation shared by plan_factorization and the distributed
+    plan path of the reference package — the bit-identity contract
+    between them holds by construction for every stage here.
+
+    symbfact_fn(b_indptr, b_indices, part) -> SymbolicFactorization
+    lets the distributed path substitute its domain-distributed wave;
+    None = the local (native, optionally threaded) pass."""
+    if autotune is None:
+        autotune = bool(getattr(options, "autotune", False))
+
+    # rows/cols after Pr then symmetric Pc
+    r1 = perm_c[perm_r[coo_rows]]
+    c1 = perm_c[coo_cols]
+
+    # [Etree + postorder] (sp_colorder, pdgssvx.c:1046)
+    with stats.timer("ETREE"):
+        ones = np.ones(len(coo_rows))
+        b1 = sp.coo_matrix((ones, (r1, c1)), shape=(n, n))
+        b1 = (b1 + b1.T + sp.eye(n)).tocsr()
+        b1.sort_indices()
+        parent1 = etree_symmetric(b1.indptr, b1.indices, n)
+        post = postorder(parent1)
+        invpost = np.empty(n, dtype=np.int64)
+        invpost[post] = np.arange(n)
+        parent = relabel_tree(parent1, post)
+
+    # composed length-n permutation maps: original label -> factor label
+    final_row = invpost[perm_c[perm_r]]
+    final_col = invpost[perm_c]
+    fr = final_row[coo_rows]
+    fc = final_col[coo_cols]
+
+    # symmetrized pattern in final order
+    b = sp.coo_matrix((np.ones(len(fr)), (fr, fc)),
+                      shape=(n, n))
+    b = (b + b.T + sp.eye(n)).tocsr()
+    b.sort_indices()
+    b_indptr = b.indptr.astype(np.int64)
+    b_indices = b.indices.astype(np.int64)
+
+    # [Symbfact] (pdgssvx.c:1075)
+    with stats.timer("SYMBFACT"):
+        colcount = col_counts_postordered(b_indptr, b_indices, parent)
+        part = find_supernodes(parent, colcount,
+                               options.relax, options.max_super)
+        if symbfact_fn is None:
+            sym = symbolic_factorize(b_indptr, b_indices, part,
+                                     threads=options.symb_threads)
+        else:
+            sym = symbfact_fn(b_indptr, b_indices, part)
+        w0 = np.diff(sym.part.xsup).astype(np.int64)
+        r0 = np.array([len(t) for t in sym.struct], dtype=np.int64)
+        true_factor_flops = float(np.sum(front_flops(w0, r0)))
+        sym = amalgamate(sym, options.amalg_tau, options.amalg_cap)
+
+    # [Dist-plan] frontal maps (the pddistribute analog — here it
+    # produces static index maps instead of MPI send lists)
+    with stats.timer("DIST"):
+        frontal = build_frontal_plan(
+            sym, fr, fc,
+            options.width_buckets, options.front_buckets)
+
+    plan = FactorPlan(
+        n=n, options=options, equed=equed,
+        row_scale=r_eff, col_scale=c_eff,
+        perm_r=perm_r, perm_c=perm_c, post=post,
+        final_row=final_row, final_col=final_col,
+        coo_rows=coo_rows, coo_cols=coo_cols,
+        frontal=frontal, anorm=anorm,
+        true_factor_flops=true_factor_flops)
+    if autotune:
+        from .autotune import autotuned_options
+        tuned = autotuned_options(plan, options)
+        with stats.timer("DIST"):
+            plan.frontal = build_frontal_plan(
+                sym, fr, fc, tuned.width_buckets, tuned.front_buckets)
+        plan.options = tuned
+    stats.lu_nnz = plan.lu_nnz()
+    return plan

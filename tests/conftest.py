@@ -123,6 +123,11 @@ def pytest_configure(config):
         "slow: heavy serve/load tests (minutes of wall clock) — "
         "excluded from tier-1 (`-m 'not slow'`) and from the default "
         "suite; run with `pytest -m slow`")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card and nvcc (the PyTorch port's "
+        "kernels); skips with its reason elsewhere — run on the card "
+        "with `pytest -m cuda tests/test_torch_cuda.py`")
 
 
 def pytest_collection_modifyitems(config, items):
