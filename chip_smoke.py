@@ -13,7 +13,10 @@ Phases, each of which raises (non-zero exit) on failure:
                  largest), timed beside the plain version, one PyTorch
                  library call where one computes the same function, and
                  the bound (bytes over 3.35 TB/s or flops over 67
-                 TFLOP/s, whichever is larger);
+                 TFLOP/s, whichever is larger).  K2 and K3 are timed in
+                 turns with their plain version and library call, as
+                 device time (CUDA-graph replays); the `[vs library]`
+                 line gives ms / library ms and bound ms / ms;
   4. main path — gssvx(Options(), a, b) on laplacian_3d(48) in float64,
                  with every kernel launch count set to 0 just before and
                  read just after (each must be > 0); berr ≤ 64·eps(f64);
@@ -79,6 +82,45 @@ def time_cuda(fn, reps=5, setup=None):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def time_turns(fns: dict, eager=(), rounds=7, inner=10):
+    """Median device milliseconds per call of each function in `fns`,
+    timed in turns on the same card.  Each function's `inner` calls are
+    captured once into a CUDA graph (those named in `eager`, which
+    synchronise with the host, run eagerly instead), so the times are
+    the device's and not the host's launch overhead.  Each round replays
+    every function once between CUDA events, in forward order on even
+    rounds and reverse order on odd ones, so drifts of clock and power
+    fall on all of them alike."""
+    import torch
+    runs = {}
+    for k, fn in fns.items():
+        fn()                                # warm-up (and first build)
+        torch.cuda.synchronize()
+        if k in eager:
+            runs[k] = lambda fn=fn: [fn() for _ in range(inner)]
+            continue
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(inner):
+                fn()
+        runs[k] = g.replay
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    names = list(fns)
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            runs[k]()
+            e.record()
+            e.synchronize()
+            times[k].append(s.elapsed_time(e) / inner)
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str):
@@ -220,16 +262,16 @@ def check_ea_scatter(sched, g, bucket, dtype):
     if not rel <= TOL[dtype]:
         raise RuntimeError(f"ea_scatter {dtype} rc_b={bucket.rc_b} rel "
                            f"err {rel:.3e} > {TOL[dtype]}")
-    reset = lambda: F1.copy_(F0)                        # noqa: E731
-    ms = time_cuda(lambda: ea_scatter.ea_scatter_add(F1, upd, bucket),
-                   setup=reset)
-    plain_ms = time_cuda(
-        lambda: ea_scatter.ea_scatter_add_plain(F1, upd, bucket),
-        setup=reset)
+    # the adds accumulate into F1 across the timed calls: the work per
+    # call does not depend on the values
     dst, src = ea_scatter.flat_indices(F1, bucket)
     vals = upd[src]
-    lib_ms = time_cuda(lambda: F1.view(-1).index_add_(0, dst, vals),
-                       setup=reset)
+    tm = time_turns({
+        "kernel": lambda: ea_scatter.ea_scatter_add(F1, upd, bucket),
+        "plain": lambda: ea_scatter.ea_scatter_add_plain(F1, upd, bucket),
+        "library": lambda: F1.view(-1).index_add_(0, dst, vals)},
+        eager=("plain",))  # its masked gather synchronises
+    ms, plain_ms, lib_ms = tm["kernel"], tm["plain"], tm["library"]
     live = int(dst.numel())
     it = F0.element_size()
     nrec = int(bucket.so.numel())
@@ -273,17 +315,19 @@ def check_lsum(ts, g, gs, R, pdtype, xdtype):
     if not rel <= tol:
         raise RuntimeError(f"lsum {pdtype}/{xdtype} R={R} rel err "
                            f"{rel:.3e} > {tol}")
-    ms = time_cuda(lambda: lsum.lsum_panel(Li, L21, xb, Y1, U1, *args))
-    plain_ms = time_cuda(
-        lambda: lsum.lsum_panel_plain(Li, L21, xb, Y2, U2, *args))
-
     L21c = L21[:, :rt, :]
 
     def two_bmm():
         y = torch.bmm(Li, xb)
         torch.bmm(L21c, y)
 
-    lib_ms = time_cuda(two_bmm) if pdtype == xdtype else None
+    fns = {"kernel": lambda: lsum.lsum_panel(Li, L21, xb, Y1, U1, *args),
+           "plain": lambda: lsum.lsum_panel_plain(Li, L21, xb, Y2, U2,
+                                                  *args)}
+    if pdtype == xdtype:
+        fns["library"] = two_bmm
+    tm = time_turns(fns)
+    ms, plain_ms, lib_ms = tm["kernel"], tm["plain"], tm.get("library")
     sp, sx = Li.element_size(), xb.element_size()
     flops = 2.0 * t * (wb * wb + rt * wb) * R
     nbytes = ((t * wb * wb + t * rt * wb) * sp + t * wb * R * sx
@@ -354,6 +398,15 @@ def kernel_checks(plan):
         {str(r["shape"]): round(r["ms_over_plain"], 3)
          for r in res["lsum"]
          if r["shape"][-1] == 64 and r["dtype"] == "float64/float64"}))
+    # K2 and K3 against one PyTorch call (ms / library ms; below 1 is
+    # faster) and against their bound (bound ms / ms, the share of it
+    # reached)
+    log("[vs library] " + json.dumps([
+        {"kernel": name, "shape": r["shape"], "dtype": r["dtype"],
+         "ms_over_library": (r["ms"] / r["library_ms"]
+                             if r["library_ms"] else None),
+         "bound_over_ms": r["bound_ms"] / r["ms"]}
+        for name in ("ea_scatter", "lsum") for r in res[name]]))
     return res
 
 

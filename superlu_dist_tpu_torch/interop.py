@@ -7,7 +7,7 @@ plain data: nested dicts of numpy arrays, lists and scalars, one dict
 per dataclass keyed by field name, enum members by name.
 
     plan_from_arrays(d)                 -> FactorPlan
-    lu_from_arrays(plan, panels, dtype, device)
+    lu_from_arrays(plan, panels, dtype, device=None)
                                         -> ops.batched.StagedLU
 """
 
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import options as options_mod
+from .device import resolve_device
 from .ops import batched
 from .plan.frontal import FrontalPlan
 from .plan.plan import FactorPlan
@@ -82,12 +83,14 @@ def plan_from_arrays(d: dict, device=None) -> FactorPlan:
 
 
 def lu_from_arrays(plan: FactorPlan, panels, dtype,
-                   device="cpu", tiny_pivots: int = 0
+                   device=None, tiny_pivots: int = 0
                    ) -> batched.StagedLU:
     """The port's factor handle from the reference's factors as numpy:
     either per-group (L, U, Li, Ui) local flats (StagedLU.panels) or
     the four whole-slab flats of a DeviceLU, sliced per group at the
-    schedule's offsets."""
+    schedule's offsets.  `device` resolves as in gssvx: None is the
+    CUDA card (NoCudaDeviceError without one); pass "cpu" for the
+    host."""
     dtype = np.dtype(dtype)
     sched = batched.get_schedule(plan)
     if isinstance(panels[0], np.ndarray):       # DeviceLU flats
@@ -100,7 +103,7 @@ def lu_from_arrays(plan: FactorPlan, panels, dtype,
                            U[g.U_off:g.U_off + sz[1]],
                            Li[g.Li_off:g.Li_off + sz[2]],
                            Ui[g.Ui_off:g.Ui_off + sz[3]]))
-    dev = torch.device(device)
+    dev = resolve_device(device)
     out = [tuple(torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
                  for a in p)
            for p in panels]

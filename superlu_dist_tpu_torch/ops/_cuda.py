@@ -109,11 +109,12 @@ _SIGNATURES = {
         "slu_panel_lu_f64": [_P, _I, _I, _I, _I, _D, _P, _P, _P],
     },
     "ea_scatter": {
-        # F, upd, so, st, pr, fronts, seg, nfronts, rc_b, mb, stream
-        "slu_ea_scatter_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _P],
-        "slu_ea_scatter_f64": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _P],
+        # F, upd, so, st, pr, fronts, seg, nfronts, rc_b, mb, head_dst,
+        # head_src, head_src2, xptr, xsrc (null: banded variant), nheads,
+        # stream
+        **{f"slu_ea_scatter_{t}": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _P, _P, _P, _P, _P, _I, _P]
+           for t in ("f32", "f64")},
     },
     "lsum": {
         # Li, Li strides (front, row), L21, L21 strides, xb, Y, UPD,

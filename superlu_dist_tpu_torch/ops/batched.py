@@ -37,7 +37,8 @@ import torch
 from ..device import torch_dtype, upload_int64
 from ..plan.plan import FactorPlan
 from .dense_lu import unit_lower_inverse, upper_inverse
-from .ea_scatter import EaBucket, ea_scatter_add
+from .ea_scatter import (NARROW, EaBucket, destination_lists,
+                         ea_scatter_add)
 from .panel_lu import partial_lu_batch
 
 
@@ -136,9 +137,13 @@ class GroupSpec:
             dbr = db[:nreal]
             fb = dbr // (self.mb * self.mb)
             starts = np.flatnonzero(np.r_[True, fb[1:] != fb[:-1]])
-            arrays += [so[:nreal], st[:nreal], dbr, pr[:nreal],
-                       fb[starts], np.r_[starts, nreal]]
-            rcs.append(int(rc_b))
+            part = [so[:nreal], st[:nreal], dbr, pr[:nreal], fb[starts],
+                    np.r_[starts, nreal]]
+            if rc_b <= NARROW:
+                part += destination_lists(so[:nreal], st[:nreal], dbr,
+                                          pr[:nreal], self.mb)
+            arrays += part
+            rcs.append((int(rc_b), len(part)))
         eb = []
         for (li, lj, st, K), (so, dr, dc, w) in zip(self.eb_meta,
                                                     self.eb_hosts):
@@ -148,8 +153,10 @@ class GroupSpec:
                         for i in live]))
 
         def make(ts):
-            ea = [EaBucket(rc, *ts[3 + 6 * i:9 + 6 * i])
-                  for i, rc in enumerate(rcs)]
+            ea, i = [], 3
+            for rc, n in rcs:
+                ea.append(EaBucket(rc, *ts[i:i + n]))
+                i += n
             return GroupDev(a_src=ts[0], a_dst=ts[1], one_dst=ts[2],
                             ea=ea, eb=eb)
         return arrays, make

@@ -12,15 +12,25 @@ On a CUDA tensor `ea_scatter_add` launches the kernel; on a CPU tensor
 it runs the plain version (`ea_scatter_add_plain`: a masked gather plus
 `index_add_`), never the other way round.  `ea_scatter_add.launches`
 counts kernel launches (one per bucket).
+
+Narrow buckets (children at most NARROW wide) carry per-destination
+lists, derived on the host once per schedule (`destination_lists`):
+the kernel gives each destination one thread, which adds the child
+values that land there in record order.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 from . import _cuda
+
+# widest child bucket whose lanes go to per-destination lists
+NARROW = 32
 
 
 @dataclasses.dataclass
@@ -29,7 +39,8 @@ class EaBucket:
     records dropped on the host): child slab offset `so`, slab row
     stride `st`, front base `db` (front · mb²), destination positions
     `pr` (nrec, rc_b) with sentinel mb, and the front-sorted record
-    ranges: records seg[f]..seg[f+1] belong to front fronts[f]."""
+    ranges: records seg[f]..seg[f+1] belong to front fronts[f].
+    Narrow buckets also carry `destination_lists` (else None)."""
     rc_b: int
     so: torch.Tensor
     st: torch.Tensor
@@ -37,6 +48,38 @@ class EaBucket:
     pr: torch.Tensor
     fronts: torch.Tensor
     seg: torch.Tensor
+    head_dst: Optional[torch.Tensor] = None
+    head_src: Optional[torch.Tensor] = None
+    head_src2: Optional[torch.Tensor] = None
+    xptr: Optional[torch.Tensor] = None
+    xsrc: Optional[torch.Tensor] = None
+
+
+def destination_lists(so, st, db, pr, mb: int):
+    """The bucket's live lanes grouped by destination, host numpy int64:
+    (head_dst, head_src, head_src2, xptr, xsrc).  Destination h is the
+    flat front element head_dst[h]; the child values that land there,
+    in record order, are slab elements head_src[h], then head_src2[h]
+    (-1: none), then xsrc[xptr[h]:xptr[h+1]].  Sentinel lanes are
+    dropped before any slab index is kept."""
+    rc_b = pr.shape[1]
+    i = np.arange(rc_b)
+    src = (so[:, None, None] + i[None, :, None] * st[:, None, None]
+           + i[None, None, :])
+    live = (pr[:, :, None] < mb) & (pr[:, None, :] < mb)
+    dst = db[:, None, None] + pr[:, :, None] * mb + pr[:, None, :]
+    dst, src = dst[live], src[live]               # record-major
+    order = np.argsort(dst, kind="stable")
+    dst, src = dst[order], src[order]
+    h = np.flatnonzero(np.r_[True, dst[1:] != dst[:-1]]) if len(dst) \
+        else np.zeros(0, np.int64)
+    mult = np.diff(np.r_[h, len(dst)])
+    src2 = np.where(mult > 1, src[np.minimum(h + 1, len(src) - 1)], -1)
+    rest = np.ones(len(dst), bool)                # third value onwards
+    rest[h] = False
+    rest[h[mult > 1] + 1] = False
+    xptr = np.r_[0, np.cumsum(np.maximum(mult - 2, 0))]
+    return dst[h], src[h], src2, xptr.astype(np.int64), src[rest]
 
 
 def flat_indices(F: torch.Tensor, b: EaBucket):
@@ -81,9 +124,15 @@ def ea_scatter_add(F: torch.Tensor, upd_buf: torch.Tensor,
     lib = _cuda.library("ea_scatter")
     fn = (lib.slu_ea_scatter_f64 if F.dtype == torch.float64
           else lib.slu_ea_scatter_f32)
+    lists = (b.head_dst, b.head_src, b.head_src2, b.xptr, b.xsrc)
+    if b.head_dst is None:
+        lists, nheads = (None,) * 5, 0            # the banded variant
+    else:
+        nheads = b.head_dst.numel()
     rc = fn(F.data_ptr(), upd_buf.data_ptr(), b.so.data_ptr(),
             b.st.data_ptr(), b.pr.data_ptr(), b.fronts.data_ptr(),
             b.seg.data_ptr(), b.fronts.numel(), b.rc_b, mb,
+            *[None if t is None else t.data_ptr() for t in lists], nheads,
             _cuda.stream_ptr(F))
     _cuda.check(lib, rc, "ea_scatter")
     ea_scatter_add.launches += 1

@@ -6,9 +6,12 @@ for one forward trisolve group, y = Li·xb then upd = L21[:rtrim]·y,
 with y kept on chip and both results written straight into the dense
 solve buffers Y (at y_off) and UPD (at u_off).
 
-On CUDA tensors `lsum_panel` launches the kernel; on CPU tensors it
-runs the plain version (`lsum_panel_plain`: the two batched products
-of trisolve._fwd_member).  `lsum_panel.launches` counts launches.
+On CUDA tensors `lsum_panel` launches the kernel (one launch for
+narrow fronts, two for wide ones: y, then upd; csrc/lsum.cu picks by
+shape, never a library call); on CPU tensors it runs the plain version
+(`lsum_panel_plain`: the two batched products of
+trisolve._fwd_member).  `lsum_panel.launches` counts wrapper calls
+that launched the kernel.
 The transposed lane stays the PyTorch formulation
 (trisolve._fwd_member), as in the reference, whose Pallas kernel never
 took it.

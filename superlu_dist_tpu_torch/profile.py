@@ -29,8 +29,8 @@ import numpy as np
 CATEGORIES = (
     ("K1 panel_lu", ("diag_factor_kernel", "panel_trsm_kernel",
                      "schur_kernel")),
-    ("K2 ea_scatter", ("ea_scatter_kernel",)),
-    ("K3 lsum", ("lsum_kernel",)),
+    ("K2 ea_scatter", ("ea_narrow", "ea_wide")),
+    ("K3 lsum", ("lsum_fused", "row_dots", "tile_product")),
     ("gemm (library)", ("gemm", "gemv", "cutlass", "sm90_xmma",
                         "sm80_xmma", "ampere", "Kernel2")),
     ("index/scatter", ("index", "scatter", "gather")),

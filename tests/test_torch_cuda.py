@@ -60,50 +60,126 @@ def test_panel_lu_kernel_matches_plain(card, dtype, N, mb, wb):
     assert (int(t1), int(z1)) == (int(t2), int(z2)) == (1, 0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_ea_scatter_kernel_matches_plain(card, dtype):
-    from superlu_dist_tpu_torch.ops import batched, ea_scatter
+def _buckets(card, name):
+    """Every element bucket of the named matrix's schedule, on the card,
+    with its group."""
+    from superlu_dist_tpu_torch.ops import batched
     from superlu_dist_tpu_torch.plan.plan import plan_factorization
-    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
-    plan = plan_factorization(laplacian_3d(12))
+    from superlu_dist_tpu_torch.utils import testmat
+    fn, arg = name
+    plan = plan_factorization(getattr(testmat, fn)(arg))
     sched = batched.get_schedule(plan)
+    return sched, [(g, b) for g in sched.groups for b in g.dev(card).ea]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", [("laplacian_3d", 12),
+                                  ("convection_diffusion_2d", 40)])
+def test_ea_scatter_kernel_matches_plain(card, dtype, name):
+    """Every bucket of the schedule, through both variants (one warp
+    per front up to 32-wide children, banded CTAs above)."""
+    from superlu_dist_tpu_torch.ops import ea_scatter
+    sched, buckets = _buckets(card, name)
+    g0 = torch.Generator(device=card).manual_seed(7)
     upd = torch.randn(sched.upd_total + sched.upd_pad, dtype=dtype,
-                      device=card)
-    n = 0
-    for grp in sched.groups:
-        for b in grp.dev(card).ea:
-            F0 = torch.randn(grp.n_loc, grp.mb, grp.mb, dtype=dtype,
-                             device=card)
-            F1, F2 = F0.clone(), F0.clone()
-            ea_scatter.ea_scatter_add(F1, upd, b)
-            ea_scatter.ea_scatter_add_plain(F2, upd, b)
-            assert _rel(F1, F2) < TOL[dtype]
-            n += 1
-    assert n > 0
+                      device=card, generator=g0)
+    wide = set()
+    for grp, b in buckets:
+        F0 = torch.randn(grp.n_loc, grp.mb, grp.mb, dtype=dtype,
+                         device=card, generator=g0)
+        F1, F2 = F0.clone(), F0.clone()
+        ea_scatter.ea_scatter_add(F1, upd, b)
+        ea_scatter.ea_scatter_add_plain(F2, upd, b)
+        assert _rel(F1, F2) < TOL[dtype], (grp.mb, b.rc_b)
+        wide.add(b.rc_b > 32)
+    assert wide == {False, True}
 
 
-@pytest.mark.parametrize("pd,xd", [(torch.float64, torch.float64),
-                                   (torch.float32, torch.float32),
-                                   (torch.float32, torch.float64)])
-@pytest.mark.parametrize("R", [1, 3, 64])
-@pytest.mark.parametrize("t,wb,mb,rtrim", [(7, 32, 160, 120),
-                                           (1, 128, 128, 0)])
-def test_lsum_kernel_matches_plain(card, pd, xd, R, t, wb, mb, rtrim):
-    """Narrow panels over several fronts, and a root front without
-    update rows (y alone, split over one cluster)."""
+@pytest.mark.parametrize("wide", [False, True])
+def test_ea_scatter_trailing_sentinel_records(card, wide):
+    """A bucket whose last records are all sentinel (their slab offsets
+    run past the slab) adds exactly what the same bucket without them
+    adds."""
+    import dataclasses
+    from superlu_dist_tpu_torch.ops import ea_scatter
+    _, buckets = _buckets(card, ("laplacian_3d", 12))
+    grp, b = max((gb for gb in buckets if (gb[1].rc_b > 32) == wide),
+                 key=lambda gb: gb[1].so.numel())
+    upd = torch.randn(int(b.so.max()) + b.rc_b * int(b.st.max()) + 1,
+                      dtype=torch.float64, device=card)
+    npad = 3
+    pad = dataclasses.replace(
+        b,
+        so=torch.cat([b.so, b.so.new_full((npad,), upd.numel() + 10**6)]),
+        st=torch.cat([b.st, b.st[-1:].repeat(npad)]),
+        db=torch.cat([b.db, b.db[-1:].repeat(npad)]),
+        pr=torch.cat([b.pr, b.pr.new_full((npad, b.rc_b), grp.mb)]),
+        seg=torch.cat([b.seg[:-1], b.seg[-1:] + npad]))
+    F0 = torch.randn(grp.n_loc, grp.mb, grp.mb, dtype=torch.float64,
+                     device=card)
+    F1, F2 = F0.clone(), F0.clone()
+    ea_scatter.ea_scatter_add(F1, upd, pad)
+    ea_scatter.ea_scatter_add(F2, upd, b)
+    torch.cuda.synchronize()
+    assert torch.equal(F1, F2)
+
+
+def _lsum_case(card, pd, xd, R, t, wb, mb, rtrim):
     from superlu_dist_tpu_torch.ops import lsum
-    Lp = torch.randn(t, mb, wb, dtype=pd, device=card) / wb
-    Li = torch.randn(t, wb, wb, dtype=pd, device=card) / wb
-    xb = torch.randn(t, wb, R, dtype=xd, device=card)
+    g = torch.Generator(device=card).manual_seed(t * 1000 + wb + R)
+    Lp = torch.randn(t, mb, wb, dtype=pd, device=card, generator=g) / wb
+    Li = torch.randn(t, wb, wb, dtype=pd, device=card, generator=g) / wb
+    xb = torch.randn(t, wb, R, dtype=xd, device=card, generator=g)
     bufs = [(torch.zeros(5 + t * wb, R, dtype=xd, device=card),
              torch.zeros(9 + t * rtrim, R, dtype=xd, device=card))
             for _ in range(2)]
+    # L21 is a strided view: the rows of Lp past the pivot block
     lsum.lsum_panel(Li, Lp[:, wb:], xb, *bufs[0], 4, 8, rtrim)
     lsum.lsum_panel_plain(Li, Lp[:, wb:], xb, *bufs[1], 4, 8, rtrim)
     torch.cuda.synchronize()
     tol = TOL[pd] if pd == xd else 1e-12
     assert _rel(bufs[0][0], bufs[1][0]) < tol
     assert _rel(bufs[0][1], bufs[1][1]) < tol
+    # rows outside the group's blocks of Y and UPD stay untouched
+    assert not bufs[0][0][:4].any() and not bufs[0][0][4 + t * wb:].any()
+    assert not bufs[0][1][:8].any()
+    assert not bufs[0][1][8 + t * rtrim:].any()
+
+
+_PAIRS = [(torch.float64, torch.float64), (torch.float32, torch.float32),
+          (torch.float32, torch.float64)]
+
+
+@pytest.mark.parametrize("pd,xd", _PAIRS)
+@pytest.mark.parametrize("R", [1, 2, 7, 8, 9, 33, 64])
+@pytest.mark.parametrize("t,wb,mb,rtrim", [(7, 32, 160, 120),
+                                           (1, 128, 128, 0),
+                                           (3, 40, 141, 101),
+                                           (300, 24, 90, 60),
+                                           (280, 16, 16, 0)])
+def test_lsum_kernel_matches_plain(card, pd, xd, R, t, wb, mb, rtrim):
+    """Narrow panels over several fronts; a root front without update
+    rows (y alone); a depth (40) that is no multiple of the tile depth,
+    with a ragged last row tile and rtrim below the panel's row count;
+    and enough narrow fronts for the fused single launch, with and
+    without update rows."""
+    _lsum_case(card, pd, xd, R, t, wb, mb, rtrim)
+
+
+@pytest.mark.parametrize("pd,xd", _PAIRS)
+@pytest.mark.parametrize("R", [1, 64, 70])
+def test_lsum_kernel_large_front(card, pd, xd, R):
+    """A wide front (wb 512) with many update rows; at R = 70 the
+    right-hand sides take two column tiles."""
+    _lsum_case(card, pd, xd, R, 2, 512, 1600, 1000)
+
+
+@pytest.mark.parametrize("R", [1, 4, 16])
+def test_lsum_kernel_unaligned_rows(card, R):
+    """Panel rows of odd length (wb 7) are not 16-byte aligned, so the
+    stages copy element by element."""
+    _lsum_case(card, torch.float64, torch.float64, R, 5, 7, 30, 20)
+    _lsum_case(card, torch.float32, torch.float32, R, 5, 7, 30, 23)
 
 
 def test_gssvx_on_card_launches_every_kernel(card):

@@ -79,6 +79,27 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
     assert np.allclose(a.to_scipy() @ x, b)
 
 
+def test_lu_from_arrays_refuses_silent_cpu(monkeypatch):
+    """The carrier of the reference's factors resolves its device as
+    gssvx does: no card and no `device` raises; "cpu" runs."""
+    import torch
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch import interop
+    from superlu_dist_tpu_torch.device import NoCudaDeviceError
+    from superlu_dist_tpu_torch.ops import batched
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_2d
+    plan = st.plan_factorization(laplacian_2d(4), device="cpu")
+    panels = [tuple(np.zeros(n) for n in (
+        g.n_loc * g.mb * g.wb, g.n_loc * g.wb * g.mb,
+        g.n_loc * g.wb * g.wb, g.n_loc * g.wb * g.wb))
+        for g in batched.get_schedule(plan).groups]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoCudaDeviceError):
+        interop.lu_from_arrays(plan, panels, np.float64)
+    lu = interop.lu_from_arrays(plan, panels, np.float64, "cpu")
+    assert all(t.device.type == "cpu" for p in lu.panels for t in p)
+
+
 def test_complex_refused_with_roadmap_pointer():
     import superlu_dist_tpu_torch as st
     from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d

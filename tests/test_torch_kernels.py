@@ -197,7 +197,7 @@ def test_ea_scatter_padding_changes_nothing():
 # ---------------------------------------------------------------- K3
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-@pytest.mark.parametrize("R", [1, 8])
+@pytest.mark.parametrize("R", [1, 8, 64])
 def test_lsum_plain_matches_reference(dtype, R):
     from superlu_dist_tpu.ops import pallas_lsum
     from superlu_dist_tpu_torch.ops.lsum import lsum_panel

@@ -132,3 +132,117 @@ def test_coalesce_buckets_matches_reference(name, limit):
         assert got == jb._coalesce_buckets(by_bucket, limit)
         assert sorted(s for sl in got.values() for s in sl) == sorted(
             s for sl in by_bucket.values() for s in sl)
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_row_maps_sorted_below_mb(name):
+    """What the extend-add kernel's wide variant relies on: every real
+    record's row map is strictly increasing below mb, then sentinel mb
+    to the end, on the host arrays (equal to the reference's) and on
+    the device copies.  So a binary search of the map finds exactly the
+    child rows that land in a band of parent rows."""
+    import torch
+    _, st = _schedules(name)
+    cpu = torch.device("cpu")
+    nrec = 0
+    for g in st.groups:
+        live = [m for m in g.ea_meta if m[2]]
+        for (rc_b, K, nreal), (_, _, _, pr), b in zip(
+                live, [h for h, m in zip(g.ea_hosts, g.ea_meta) if m[2]],
+                g.dev(cpu).ea):
+            np.testing.assert_array_equal(b.pr.numpy(), pr[:nreal])
+            for row in pr[:nreal]:
+                rc = int(np.sum(row < g.mb))
+                assert rc > 0
+                assert (row[rc:] == g.mb).all()
+                assert (np.diff(row[:rc]) > 0).all() and row[rc - 1] < g.mb
+                for r0 in range(0, g.mb, 32):
+                    r1 = min(r0 + 32, g.mb)
+                    lo, hi = np.searchsorted(row, [r0, r1])
+                    np.testing.assert_array_equal(
+                        np.arange(lo, hi),
+                        np.flatnonzero((row >= r0) & (row < r1)))
+                nrec += 1
+    assert nrec > 0
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_ea_scatter_plain_matches_reference_schedule(name, dtype):
+    """Every element bucket of the parity schedules: the port's plain
+    extend-add (the CPU side of kernel K2) against the reference's
+    element lane (`.at[].add` with mode="drop") on the same fronts and
+    slab."""
+    import jax.numpy as jnp
+    import torch
+    from superlu_dist_tpu.ops import batched as jb
+    from superlu_dist_tpu_torch.ops.ea_scatter import ea_scatter_add
+    from torch_port_util import TOL, rel_maxnorm
+    sj, st = _schedules(name)
+    rng = np.random.default_rng(5)
+    slab = rng.standard_normal(st.upd_total + st.upd_pad).astype(dtype)
+    nb = 0
+    for gj, gt in zip(sj.groups, st.groups):
+        if not gt.ea_meta:
+            continue
+        F0 = rng.standard_normal((gt.n_loc, gt.mb, gt.mb)).astype(dtype)
+        Ft = torch.from_numpy(F0.copy())
+        for b in gt.dev(torch.device("cpu")).ea:
+            ea_scatter_add(Ft, torch.from_numpy(slab), b)
+            nb += 1
+        blocks = tuple(tuple(jnp.asarray(a) for a in h)
+                       for h in gj.ea_hosts)
+        ref = jb._ea_add(jnp.asarray(F0.reshape(-1)), jnp.asarray(slab),
+                         blocks, tuple(gj.ea_meta), mb=gt.mb,
+                         n_pad=gt.n_loc, allow_pallas=False)
+        assert rel_maxnorm(Ft.numpy().reshape(-1),
+                           np.asarray(ref)) < TOL[np.dtype(dtype)]
+    assert nb > 0
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_destination_lists_match_int64_arrays(name):
+    """The per-destination lists the extend-add kernel reads for narrow
+    buckets hold exactly the live lanes of the bucket's int64 arrays:
+    every (destination, slab source) pair once, the sources of one
+    destination in record order (the first two inline, the rest in the
+    side list).  Replaying them as the kernel does (F + first value +
+    later values) equals the plain version bit for bit."""
+    import torch
+    from superlu_dist_tpu_torch.ops.ea_scatter import (
+        NARROW, ea_scatter_add_plain, flat_indices)
+    _, st = _schedules(name)
+    rng = np.random.default_rng(9)
+    slab = torch.from_numpy(rng.standard_normal(st.upd_total + st.upd_pad))
+    n = 0
+    for g in st.groups:
+        for b in g.dev(torch.device("cpu")).ea:
+            if b.rc_b > NARROW:
+                assert b.head_dst is None
+                continue
+            F = torch.from_numpy(rng.standard_normal((g.n_loc, g.mb, g.mb)))
+            dst, src = (t.numpy() for t in flat_indices(F, b))
+            order = np.argsort(dst, kind="stable")
+            hd, hs = b.head_dst.numpy(), b.head_src.numpy()
+            hs2, xp, xs = (b.head_src2.numpy(), b.xptr.numpy(),
+                           b.xsrc.numpy())
+            srcs = [[s0] + ([s1] if s1 >= 0 else []) + list(xs[a:c])
+                    for s0, s1, a, c in zip(hs, hs2, xp[:-1], xp[1:])]
+            assert all(s1 >= 0 or a == c for s1, a, c in
+                       zip(hs2, xp[:-1], xp[1:]))
+            np.testing.assert_array_equal(np.concatenate(srcs),
+                                          src[order])
+            np.testing.assert_array_equal(
+                np.repeat(hd, [len(x) for x in srcs]), dst[order])
+            assert len(np.unique(hd)) == len(hd)
+            ref = F.clone()
+            ea_scatter_add_plain(ref, slab, b)
+            Ff, s = F.view(-1).numpy().copy(), slab.numpy()
+            for d, sl in zip(hd, srcs):
+                v = Ff[d]
+                for x in sl:
+                    v += s[x]
+                Ff[d] = v
+            np.testing.assert_array_equal(Ff, ref.view(-1).numpy())
+            n += 1
+    assert n > 0
