@@ -2,6 +2,8 @@
 """Drive the PyTorch/H100 port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --parent-k1 OLD/panel_lu.cu   # K1 also
+                                     # timed against an earlier K1 source
 
 Phases, each of which raises (non-zero exit) on failure:
   1. card      — name, power limit, torch and CUDA versions;
@@ -13,10 +15,18 @@ Phases, each of which raises (non-zero exit) on failure:
                  largest), timed beside the plain version, one PyTorch
                  library call where one computes the same function, and
                  the bound (bytes over 3.35 TB/s or flops over 67
-                 TFLOP/s, whichever is larger).  K2 and K3 are timed in
-                 turns with their plain version and library call, as
-                 device time (CUDA-graph replays); the `[vs library]`
-                 line gives ms / library ms and bound ms / ms;
+                 TFLOP/s, whichever is larger).  Every kernel is timed
+                 in turns with its plain version and library call, as
+                 device time (CUDA-graph replays); K1 works in place, so
+                 each of its calls is replayed after a reset copy and
+                 the copy alone, timed in the same turns, is subtracted.
+                 K1 also runs at a middle shape of the k=48 schedule,
+                 beside one `torch.baddbmm` of its trailing update
+                 (`update_library_ms`: no one call computes all of K1),
+                 and alone at every distinct shape of the schedule
+                 (`k1_sweep` in the JSON, with launches and bounds); the
+                 `[vs library]` line gives ms / library ms and bound
+                 ms / ms;
   4. main path — gssvx(Options(), a, b) on laplacian_3d(48) in float64,
                  with every kernel launch count set to 0 just before and
                  read just after (each must be > 0); berr ≤ 64·eps(f64);
@@ -203,7 +213,62 @@ def _tdt(name):
     return {"float32": torch.float32, "float64": torch.float64}[name]
 
 
-def check_panel_lu(N, mb, wb, dtype):
+def load_parent_k1(path):
+    """Build the parent commit's K1 source (`path`, a panel_lu.cu with
+    the launcher signature F, N, mb, wb, nb, thresh, tiny, nzero,
+    stream) into the port's build directory and return a launcher
+    f(F, thresh, wb) for it; None without a path."""
+    if not path:
+        return None
+    import ctypes
+    import torch
+    from superlu_dist_tpu_torch.ops import _cuda
+    from superlu_dist_tpu_torch.utils.native import build_dir
+    out = os.path.join(build_dir(), "libslu_parent_panel_lu.so")
+    subprocess.run([_cuda._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+                    "-I", _cuda._csrc(), "-o", out, path], check=True)
+    lib = ctypes.CDLL(out)
+    P, I, D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    for name in ("slu_panel_lu_f32", "slu_panel_lu_f64"):
+        getattr(lib, name).argtypes = [P, I, I, I, I, D, P, P, P]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.slu_cuda_errstr.argtypes = [ctypes.c_int]
+    lib.slu_cuda_errstr.restype = ctypes.c_char_p
+
+    def run(F, thresh, wb):
+        N, mb, _ = F.shape
+        tiny = torch.zeros(N, dtype=torch.int32, device=F.device)
+        nzero = torch.zeros(N, dtype=torch.int32, device=F.device)
+        fn = (lib.slu_panel_lu_f64 if F.dtype == torch.float64
+              else lib.slu_panel_lu_f32)
+        rc = fn(F.data_ptr(), N, mb, wb, min(32, wb), float(thresh),
+                tiny.data_ptr(), nzero.data_ptr(), _cuda.stream_ptr(F))
+        _cuda.check(lib, rc, "parent panel_lu")
+    return run
+
+
+def k1_bound(N, mb, wb, dtype):
+    from superlu_dist_tpu_torch.ops import panel_lu
+    it = 8 if dtype == "float64" else 4
+    return bound_ms(panel_lu.k1_flops(N, mb, wb),
+                    panel_lu.k1_bytes(N, mb, it), dtype)
+
+
+def time_k1(F0, thresh, wb, fns, rounds=5, inner=5):
+    """Device ms per call of each in-place K1 variant in `fns` (name ->
+    f(F)), timed in turns by CUDA-graph replays: each variant is (reset
+    copy of F0 into its own buffer + the call), and the reset copy alone
+    is timed in the same turns and subtracted."""
+    bufs = {k: F0.clone() for k in fns}
+    runs = {k: (lambda k=k, f=f: (bufs[k].copy_(F0), f(bufs[k])))
+            for k, f in fns.items()}
+    runs["reset"] = lambda: bufs[next(iter(fns))].copy_(F0)
+    tm = time_turns(runs, rounds=rounds, inner=inner)
+    return {k: tm[k] - tm["reset"] for k in fns}, tm["reset"]
+
+
+def check_panel_lu(N, mb, wb, dtype, parent=None):
     import torch
     from superlu_dist_tpu_torch.ops import dense_lu, panel_lu
     tdt = _tdt(dtype)
@@ -228,20 +293,71 @@ def check_panel_lu(N, mb, wb, dtype):
     if not rel <= TOL[dtype]:
         raise RuntimeError(f"panel_lu {dtype} ({N},{mb},{wb}) rel err "
                            f"{rel:.3e} > {TOL[dtype]}")
-    reset = lambda: F1.copy_(F0)                        # noqa: E731
-    ms = time_cuda(lambda: panel_lu.partial_lu_batch(F1, thresh, wb=wb),
-                   setup=reset)
-    plain_ms = time_cuda(
-        lambda: dense_lu.partial_lu_batch(F1, thresh, wb=wb), reps=3,
-        setup=reset)
-    flops = N * sum((mb - k - 1) + 2.0 * (mb - k - 1) ** 2
-                    for k in range(wb))
-    nbytes = 2.0 * N * mb * mb * F0.element_size()
-    b_ms, b_by = bound_ms(flops, nbytes, dtype)
+    del F2
+    fns = {"kernel": lambda F: panel_lu.partial_lu_batch(F, thresh, wb=wb),
+           "plain": lambda F: dense_lu.partial_lu_batch(F, thresh, wb=wb)}
+    if parent is not None:
+        fns["parent"] = lambda F: parent(F, thresh, wb)
+    tm, reset_ms = time_k1(F0, thresh, wb, fns)
+    # the update phase's yardstick: one batched GEMM of the trailing
+    # update on the factored operands (not the whole of K1)
+    upd_ms = None
+    if mb > wb:
+        out = torch.empty(N, mb - wb, mb - wb, dtype=tdt, device="cuda")
+        L21, U12, F22 = F1[:, wb:, :wb], F1[:, :wb, wb:], F1[:, wb:, wb:]
+        upd_ms = time_turns({"baddbmm": lambda: torch.baddbmm(
+            F22, L21, U12, alpha=-1, out=out)}, rounds=5, inner=5)[
+                "baddbmm"]
+        del out
+    b_ms, b_by = k1_bound(N, mb, wb, dtype)
+    plan = panel_lu.launch_plan(N, mb, wb, tdt)
     return {"shape": [N, mb, wb], "dtype": dtype, "max_abs_err": abs_err,
-            "rel_err": rel, "tol": TOL[dtype], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "rel_err": rel, "tol": TOL[dtype], "ms": tm["kernel"],
+            "plain_ms": tm["plain"], "parent_ms": tm.get("parent"),
+            "reset_ms": reset_ms, "library_ms": None,
+            "update_library_ms": upd_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "regime": plan.regime,
+            "kernels_per_call": plan.kernels}
+
+
+def k1_sweep(sched, parent=None):
+    """K1 timed alone (no correctness check) at every distinct (N, mb,
+    wb) of the schedule in float64, beside its padded bound and the
+    number of groups (wrapper calls) of that shape; the parent's K1 in
+    the same turns when given."""
+    from collections import Counter
+    import torch
+    from superlu_dist_tpu_torch.ops import panel_lu
+    counts = Counter((g.n_loc, g.mb, g.wb) for g in sched.groups)
+    rows = []
+    for (N, mb, wb), calls in sorted(counts.items()):
+        gen = torch.Generator(device="cuda").manual_seed(mb + wb)
+        F0 = torch.randn(N, mb, mb, generator=gen, dtype=torch.float64,
+                         device="cuda")
+        F0 += mb * torch.eye(mb, dtype=torch.float64, device="cuda")
+        thresh = 1e-8 * float(F0.abs().max())
+        fns = {"kernel": lambda F, wb=wb: panel_lu.partial_lu_batch(
+            F, thresh, wb=wb)}
+        if parent is not None:
+            fns["parent"] = lambda F, wb=wb: parent(F, thresh, wb)
+        tm, _ = time_k1(F0, thresh, wb, fns, rounds=3, inner=3)
+        b_ms, b_by = k1_bound(N, mb, wb, "float64")
+        plan = panel_lu.launch_plan(N, mb, wb, torch.float64)
+        rows.append({"shape": [N, mb, wb], "calls": calls,
+                     "regime": plan.regime,
+                     "kernels_per_call": plan.kernels,
+                     "ms": tm["kernel"], "parent_ms": tm.get("parent"),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "gap_ms": calls * (tm["kernel"] - b_ms)})
+        del F0
+    rows.sort(key=lambda r: -r["gap_ms"])
+    tot = {k: sum(r["calls"] * r[k] for r in rows)
+           for k in ("ms", "bound_ms")}
+    tot["parent_ms"] = (sum(r["calls"] * r["parent_ms"] for r in rows)
+                        if parent is not None else None)
+    tot["kernels"] = sum(r["calls"] * r["kernels_per_call"] for r in rows)
+    log("[k1 sweep] schedule totals, float64: " + json.dumps(tot))
+    return {"rows": rows, "totals": tot}
 
 
 def check_ea_scatter(sched, g, bucket, dtype):
@@ -272,11 +388,8 @@ def check_ea_scatter(sched, g, bucket, dtype):
         "library": lambda: F1.view(-1).index_add_(0, dst, vals)},
         eager=("plain",))  # its masked gather synchronises
     ms, plain_ms, lib_ms = tm["kernel"], tm["plain"], tm["library"]
-    live = int(dst.numel())
-    it = F0.element_size()
+    live, nbytes = ea_scatter.bound_work(bucket, g.mb, F0.element_size())
     nrec = int(bucket.so.numel())
-    nbytes = (3.0 * live * it + nrec * bucket.rc_b * 8 + nrec * 16
-              + bucket.fronts.numel() * 16)
     b_ms, b_by = bound_ms(0.0 + live, nbytes, dtype)
     return {"shape": [nrec, bucket.rc_b, g.mb], "dtype": dtype,
             "live_lanes": live, "max_abs_err": abs_err, "rel_err": rel,
@@ -328,10 +441,8 @@ def check_lsum(ts, g, gs, R, pdtype, xdtype):
         fns["library"] = two_bmm
     tm = time_turns(fns)
     ms, plain_ms, lib_ms = tm["kernel"], tm["plain"], tm.get("library")
-    sp, sx = Li.element_size(), xb.element_size()
-    flops = 2.0 * t * (wb * wb + rt * wb) * R
-    nbytes = ((t * wb * wb + t * rt * wb) * sp + t * wb * R * sx
-              + t * (wb + rt) * R * sx)
+    flops, nbytes = lsum.bound_work(t, wb, rt, R, Li.element_size(),
+                                    xb.element_size())
     b_ms, b_by = bound_ms(flops, nbytes, xdtype)
     return {"shape": [t, wb, rt, R], "dtype": f"{pdtype}/{xdtype}",
             "max_abs_err": abs_err, "rel_err": rel, "tol": tol, "ms": ms,
@@ -339,7 +450,7 @@ def check_lsum(ts, g, gs, R, pdtype, xdtype):
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def kernel_checks(plan):
+def kernel_checks(plan, parent=None):
     from collections import Counter
     import torch
     from superlu_dist_tpu_torch.ops import batched, trisolve
@@ -347,18 +458,20 @@ def kernel_checks(plan):
     ts = trisolve.get_trisolve(sched)
     res = {"panel_lu": [], "ea_scatter": [], "lsum": []}
 
-    # K1: the most frequent (wb, mb) bucket, the largest group and the
-    # group with the most fronts (at k=48 the first two coincide)
+    # K1: the most frequent (wb, mb) bucket, the largest group, the
+    # group with the most fronts (at k=48 the first two coincide) and a
+    # middle group of the k=48 schedule
     freq = Counter((g.wb, g.mb) for g in sched.groups).most_common(1)[0][0]
     g_freq = max((g for g in sched.groups if (g.wb, g.mb) == freq),
                  key=lambda g: g.n_loc)
     g_big = max(sched.groups, key=lambda g: (g.mb, g.n_loc))
     g_many = max(sched.groups, key=lambda g: (g.n_loc, g.mb))
-    shapes = list(dict.fromkeys((g.n_loc, g.mb, g.wb)
-                                for g in (g_freq, g_big, g_many)))
+    shapes = list(dict.fromkeys([(g.n_loc, g.mb, g.wb)
+                                 for g in (g_freq, g_big, g_many)]
+                                + [K1_MIDDLE]))
     for N, mb, wb in shapes:
         for dt in ("float32", "float64"):
-            r = check_panel_lu(N, mb, wb, dt)
+            r = check_panel_lu(N, mb, wb, dt, parent)
             log("[kernel panel_lu] " + json.dumps(r))
             res["panel_lu"].append(r)
 
@@ -398,17 +511,28 @@ def kernel_checks(plan):
         {str(r["shape"]): round(r["ms_over_plain"], 3)
          for r in res["lsum"]
          if r["shape"][-1] == 64 and r["dtype"] == "float64/float64"}))
-    # K2 and K3 against one PyTorch call (ms / library ms; below 1 is
-    # faster) and against their bound (bound ms / ms, the share of it
-    # reached)
+    # the kernels against one PyTorch call (ms / library ms; below 1 is
+    # faster; for K1 the call is the trailing update's batched GEMM
+    # alone, `update_library_ms`) and against their bound (bound ms /
+    # ms, the share of it reached); K1 also against the parent commit's
+    # K1 when it was given
+    def lib_ms(r):
+        return r["library_ms"] or r.get("update_library_ms")
+
     log("[vs library] " + json.dumps([
         {"kernel": name, "shape": r["shape"], "dtype": r["dtype"],
-         "ms_over_library": (r["ms"] / r["library_ms"]
-                             if r["library_ms"] else None),
-         "bound_over_ms": r["bound_ms"] / r["ms"]}
-        for name in ("ea_scatter", "lsum") for r in res[name]]))
+         "ms_over_library": r["ms"] / lib_ms(r) if lib_ms(r) else None,
+         "bound_over_ms": r["bound_ms"] / r["ms"],
+         **({"ms_over_parent": r["ms"] / r["parent_ms"]}
+            if r.get("parent_ms") else {})}
+        for name in ("panel_lu", "ea_scatter", "lsum")
+        for r in res[name]]))
+    res["k1_sweep"] = k1_sweep(sched, parent)
     return res
 
+
+# a middle group of the k=48 schedule (mb 256-4096 with many fronts)
+K1_MIDDLE = (6, 2048, 512)
 
 KERNELS = {
     "panel_lu": ("superlu_dist_tpu_torch/csrc/panel_lu.cu",
@@ -441,7 +565,13 @@ def kernels_line(res, launches):
     return {"kernels": out}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent-k1", default=None,
+                    help="a K1 source (panel_lu.cu) of an earlier commit "
+                         "to time in turns with this one's")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -478,7 +608,8 @@ def main() -> int:
 
     # kernels vs plain versions, at shapes from the k=48 schedule
     a48 = testmat.laplacian_3d(48)
-    res = kernel_checks(st.plan_factorization(a48))
+    res = kernel_checks(st.plan_factorization(a48),
+                        load_parent_k1(args.parent_k1))
     report["kernels"] = res
 
     # the main path through the user entry point

@@ -64,38 +64,6 @@ namespace {
 constexpr int NT = 128;      // threads per CTA (4 warps)
 constexpr int STAGES = 3;    // cp.async ring depth of the fused kernel
 
-// ------------------------------------------------------------ cp.async
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// copy `bytes` (4, 8 or 16) from global to shared memory, of which the
-// first `src_bytes` are read and the rest zero-filled (0: all zeros;
-// `src` must still be a valid address)
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int src_bytes) {
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "n"(BYTES), "r"(src_bytes));
-  }
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Stage a ROWS x COLS tile of a row-major global matrix (row stride ld
 // elements) into shared memory (row stride LDS), zero-filling rows >=
 // nrows and columns >= ncols.  vec: every row start is 16-byte aligned,
@@ -176,21 +144,6 @@ struct Layout {
 };
 
 // ------------------------------------------------------ the products
-
-// D = A*B + D on the FP64 tensor cores, one 16x8x8 tile per warp.
-// Fragments (g = lane/4, q = lane%4): a0..a3 = A(g, q), A(g+8, q),
-// A(g, q+4), A(g+8, q+4); b0, b1 = B(q, g), B(q+4, g); c0, c1 =
-// C(g, 2q), C(g, 2q+1); c2, c3 = the same in row g+8.
-__device__ __forceinline__ void dmma(double& c0, double& c1, double& c2,
-                                     double& c3, double a0, double a1,
-                                     double a2, double a3, double b0,
-                                     double b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+d"(c0), "+d"(c1), "+d"(c2), "+d"(c3)
-      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
-}
 
 // Tensor-core path: warps WM x WN over the BM x BN tile, each an
 // (FM*8) x (FN*8) block of 8x8 accumulator fragments, two of them

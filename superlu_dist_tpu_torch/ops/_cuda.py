@@ -104,9 +104,10 @@ _D = ctypes.c_double
 # exported launchers and their argument lists
 _SIGNATURES = {
     "panel_lu": {
-        # F, N, mb, wb, nb, thresh, tiny, nzero, stream
-        "slu_panel_lu_f32": [_P, _I, _I, _I, _I, _D, _P, _P, _P],
-        "slu_panel_lu_f64": [_P, _I, _I, _I, _I, _D, _P, _P, _P],
+        # F, work, N, mb, wb, regime (0 small, 1 large), thresh, tiny,
+        # nzero, stream
+        "slu_panel_lu_f32": [_P, _P, _I, _I, _I, _I, _D, _P, _P, _P],
+        "slu_panel_lu_f64": [_P, _P, _I, _I, _I, _I, _D, _P, _P, _P],
     },
     "ea_scatter": {
         # F, upd, so, st, pr, fronts, seg, nfronts, rc_b, mb, head_dst,

@@ -139,3 +139,15 @@ def ea_scatter_add(F: torch.Tensor, upd_buf: torch.Tensor,
 
 
 ea_scatter_add.launches = 0
+
+
+def bound_work(b: EaBucket, mb: int, itemsize: int) -> tuple:
+    """(live lanes, bytes) the extend-add of bucket `b` into (·, mb, mb)
+    fronts must move at least: each live lane's slab value read and its
+    front element read and written, the records' int64 row maps and
+    offsets, and the fronts' segment table.  The adds are the lanes."""
+    live = int(((b.pr < mb).sum(1) ** 2).sum())
+    nrec = int(b.so.numel())
+    nbytes = (3.0 * live * itemsize + nrec * b.rc_b * 8 + nrec * 16
+              + b.fronts.numel() * 16)
+    return live, nbytes

@@ -72,3 +72,14 @@ def lsum_panel(Li_p, L21_p, xb, Y, UPD, y_off: int, u_off: int,
 
 
 lsum_panel.launches = 0
+
+
+def bound_work(t: int, wb: int, rtrim: int, R: int, psize: int,
+               xsize: int) -> tuple:
+    """(flops, bytes) of one lsum_panel call on t fronts: y = Li·xb and
+    upd = L21[:rtrim]·y, each panel element (psize bytes) read once, xb
+    read once, y and upd (xsize bytes) written once."""
+    flops = 2.0 * t * (wb * wb + rtrim * wb) * R
+    nbytes = ((t * wb * wb + t * rtrim * wb) * psize + t * wb * R * xsize
+              + t * (wb + rtrim) * R * xsize)
+    return flops, nbytes

@@ -41,23 +41,71 @@ def _rel(a, b):
     return d / s if s else d
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("N,mb,wb", [(5, 16, 8), (3, 96, 64),
-                                     (1, 200, 128)])
-def test_panel_lu_kernel_matches_plain(card, dtype, N, mb, wb):
+# K1's regimes and their edges: warp-per-front small fronts (the k=48
+# schedule's most frequent bucket, and a batch that leaves warps idle),
+# a small front with wb == mb, a small front with odd mb (scalar loads),
+# CTA-per-front small fronts, the large regime with mb no tile multiple,
+# with a partial last panel block and odd mb, at a middle shape of the
+# k=48 schedule, and with wb == mb (a panel with no update)
+_K1_SHAPES = [(4096, 16, 8), (5, 16, 8), (64, 128, 128), (3, 45, 24),
+              (3, 96, 64), (1, 200, 128), (2, 363, 96), (2, 1536, 512),
+              (1, 512, 512)]
+
+
+def _k1_case(card, dtype, N, mb, wb, thresh):
     from superlu_dist_tpu_torch.ops import dense_lu, panel_lu
     g = torch.Generator(device=card).manual_seed(mb)
     F0 = torch.randn(N, mb, mb, generator=g, dtype=dtype, device=card)
     F0 += mb * torch.eye(mb, dtype=dtype, device=card)
     F0[0, 2, :] = 0
     F0[0, :, 2] = 0
-    F0[0, 2, 2] = 1e-30                     # one tiny pivot
+    # one tiny pivot (replaced), or with thresh 0 an exact zero (counted)
+    F0[0, 2, 2] = 1e-30 if thresh else 0.0
     F1, F2 = F0.clone(), F0.clone()
-    _, t1, z1 = panel_lu.partial_lu_batch(F1, 1e-3, wb=wb)
-    _, t2, z2 = dense_lu.partial_lu_batch(F2, 1e-3, wb=wb)
+    _, t1, z1 = panel_lu.partial_lu_batch(F1, thresh, wb=wb)
+    _, t2, z2 = dense_lu.partial_lu_batch(F2, thresh, wb=wb)
     torch.cuda.synchronize()
-    assert _rel(F1, F2) < TOL[dtype]
-    assert (int(t1), int(z1)) == (int(t2), int(z2)) == (1, 0)
+    return F0, F1, F2, (int(t1), int(z1)), (int(t2), int(z2))
+
+
+@pytest.mark.parametrize("thresh", [1e-3, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N,mb,wb", _K1_SHAPES)
+def test_panel_lu_kernel_matches_plain(card, dtype, N, mb, wb, thresh):
+    """Counts equal exactly.  With thresh 0 the unreplaced zero pivot
+    makes 0/0 below it, which the two versions spread differently (the
+    plain version's Newton inverses fill whole blocks with NaN), so the
+    values are compared where the plain version stays finite, and the
+    kernel must be finite there too."""
+    _, F1, F2, c1, c2 = _k1_case(card, dtype, N, mb, wb, thresh)
+    assert c1 == c2 == ((1, 0) if thresh else (0, 1))
+    if thresh:
+        assert _rel(F1, F2) < TOL[dtype]
+    else:
+        ok = torch.isfinite(F2)
+        assert torch.isfinite(F1[ok]).all()
+        assert _rel(F1[ok], F2[ok]) < TOL[dtype]
+        if N > 1:       # the other fronts hold no zero pivot at all
+            assert _rel(F1[1:], F2[1:]) < TOL[dtype]
+
+
+@pytest.mark.parametrize("N,mb,wb", [(5, 16, 8), (64, 128, 128),
+                                     (3, 96, 64), (2, 363, 96)])
+def test_panel_lu_kernel_in_cuda_graph(card, N, mb, wb):
+    """K1 captured in a CUDA graph: a replay on fresh input equals an
+    eager call, counters included (no host sync, no allocation in the
+    launcher)."""
+    from superlu_dist_tpu_torch.ops import panel_lu
+    F0, F1, _, c1, _ = _k1_case(card, torch.float64, N, mb, wb, 1e-3)
+    F = F0.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, t, z = panel_lu.partial_lu_batch(F, 1e-3, wb=wb)
+    F.copy_(F0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(F, F1)
+    assert (int(t), int(z)) == c1
 
 
 def _buckets(card, name):
