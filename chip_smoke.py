@@ -30,11 +30,27 @@ Phases, each of which raises (non-zero exit) on failure:
   4. main path — gssvx(Options(), a, b) on laplacian_3d(48) in float64,
                  with every kernel launch count set to 0 just before and
                  read just after (each must be > 0); berr ≤ 64·eps(f64);
+     refactor  — new values (seeded) on the same pattern refactored on
+                 the same plan (SAME_PATTERN_SAME_ROWPERM): the factor
+                 graphs replay, none is captured;
   5. mixed     — the same matrix refactored in float32 (solve_dtype
                  float32, float64 refinement), converging without
                  escalation;
-  6. unsym     — convection_diffusion_2d(200) in float64;
-  7. the kernels line, the card line, and the contract line last.
+  6. unsym     — convection_diffusion_2d(200) in float64 (59 groups: the
+                 whole-phase arm, one graph for the factor sweep);
+  7. graphs    — the compiled-program layer (ops/graphs.py) on both
+                 arms: laplacian_3d(48) float64 (staged, one graph per
+                 merged segment) and convection_diffusion_2d(200)
+                 (whole phase).  The first, capturing factorization;
+                 then the eager loop and graph replays in turns (FACT
+                 host walls, the slabs held bit for bit equal); the
+                 copy-out of the slabs (device time); one FACTORED solve
+                 at nrhs 1 and 64, eager against replay (host walls, and
+                 the sweeps' device span without the host transfers);
+                 device busy and idle share of a replayed factorization
+                 and solve under torch.profiler; peak device memory,
+                 eager against graphs; graphs and segments;
+  8. the kernels line, the card line, and the contract line last.
 Everything is made from fixed seeds.  Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -202,6 +218,155 @@ def drive(label, options, a, lu=None, seed=0):
         if v <= 0:
             raise RuntimeError(f"{label}: kernel {k} was never launched")
     return lu, rec
+
+
+# --------------------------------------------------------------------
+# the compiled-program layer: eager loop against CUDA-graph replays
+# --------------------------------------------------------------------
+
+def _synced(fn):
+    """Host wall seconds of fn() ending in a device synchronisation."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _busy(fn):
+    """(device busy ms, host wall ms) of fn() under torch.profiler:
+    the summed device time of its kernels, one stream, over the wall
+    of the same run; None for busy when the trace shows no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                    # warm, outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = _synced(fn)
+    busy = sum(float(getattr(e, "self_device_time_total", 0.0))
+               for e in prof.key_averages()
+               if not e.key.startswith("aten::")) / 1e3
+    return (busy or None), wall * 1e3
+
+
+def graph_phase(label, a, rounds=3):
+    """The compiled-program layer on one matrix (see the module
+    docstring, phase 7); raises when a replay differs from the eager
+    loop beyond bitwise equality of the slabs or TOL of a solution."""
+    import numpy as np
+    import torch
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched, graphs, trisolve
+    dev = torch.device("cuda", torch.cuda.current_device())
+    plan = st.plan_factorization(a)
+    vals = plan.scaled_values(a)
+    sched = batched.get_schedule(plan)
+    sched.to_device(dev)
+    staged = batched.staged_enabled(sched)
+
+    def fact(eager):
+        return batched.factorize_device(plan, vals, np.float64, dev,
+                                        eager=eager)
+
+    fact(True)                              # warm the eager path
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    first_s, lu = _synced(lambda: fact(False))
+    first_peak = torch.cuda.max_memory_allocated() - base
+    held_by_graphs = torch.cuda.memory_allocated() - base
+    n_graphs = graphs.graph_count(sched)
+    walls = {"eager": [], "graph": []}
+    for r in range(rounds):
+        for eager in ((True, False) if r % 2 == 0 else (False, True)):
+            w, lu_r = _synced(lambda: fact(eager))
+            walls["eager" if eager else "graph"].append(w)
+            if eager:
+                ref = lu_r
+            del lu_r
+    if graphs.graph_count(sched) != n_graphs:
+        raise RuntimeError(f"{label}: a replaying factorization captured")
+    for x, y in zip(lu.flats(), ref.flats()):
+        if not torch.equal(x, y):
+            raise RuntimeError(f"{label}: replayed slabs differ from the "
+                               "eager loop's")
+    copy_ms = time_cuda(lambda: [f.clone() for f in lu.flats()])
+    held = sum(f.numel() * f.element_size() for f in lu.flats())
+    rng = np.random.default_rng(7)
+    solve = {}
+    for R in (1, 64):
+        b = rng.standard_normal((plan.n, R))
+        x_ref = batched.solve_device(ref, b, eager=True)
+        x_g = batched.solve_device(lu, b)            # captures
+        _, rel = rel_err(torch.from_numpy(x_g), torch.from_numpy(x_ref))
+        if not rel <= TOL["float64"]:
+            raise RuntimeError(f"{label}: replayed solve nrhs {R} rel err "
+                               f"{rel:.3e}")
+        sw = {"eager": [], "graph": []}
+        for r in range(rounds):
+            for eager in ((True, False) if r % 2 == 0 else (False, True)):
+                w, _ = _synced(lambda: batched.solve_device(
+                    ref if eager else lu, b, eager=eager))
+                sw["eager" if eager else "graph"].append(w)
+        solve[R] = {k: statistics.median(v) for k, v in sw.items()}
+        solve[R]["rel_err"] = rel
+        # the sweeps alone, right-hand side already on the card: the
+        # device span between CUDA events (host transfers excluded)
+        sweeps = (trisolve.staged_sweeps if staged
+                  else trisolve.solve_packed)
+        bd = torch.from_numpy(b).to(dev)
+        for eager in (True, False):
+            solve[R][("eager" if eager else "graph") + "_span_ms"] = \
+                time_cuda(lambda: sweeps(ref if eager else lu, bd, False,
+                                         eager=eager))
+    # peak device memory of one factorization and the first solve of
+    # its handle (which captures that handle's solve graphs), each way
+    peaks = {}
+    b1 = rng.standard_normal(plan.n)
+    for eager in (True, False):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lu_m = fact(eager)
+        batched.solve_device(lu_m, b1, eager=eager)
+        torch.cuda.synchronize()
+        peaks["eager" if eager else "graph"] = (
+            torch.cuda.max_memory_allocated() - m0)
+        del lu_m
+    # device busy over one factorization and one FACTORED solve (on a
+    # handle whose solve graphs exist), each way
+    busy = {}
+    for eager in (True, False):
+        held_lu = ref if eager else lu
+        busy["eager" if eager else "graph"] = _busy(
+            lambda: (fact(eager), batched.solve_device(held_lu, b1,
+                                                       eager=eager)))
+    ts = trisolve.get_trisolve(sched)
+    rec = {
+        "label": label, "arm": "staged" if staged else "whole phase",
+        "groups": len(sched.groups),
+        "factor_segments": (len(batched.get_factor_segments(sched))
+                            if staged else 1),
+        "solve_segments": len(ts.segments) if staged else 1,
+        "factor_graphs": n_graphs,
+        "solve_graphs_per_key": (2 * len(ts.segments) + 1 if staged
+                                 else 1),
+        "first_fact_s": first_s,
+        "fact_s": {k: statistics.median(v) for k, v in walls.items()},
+        "fact_s_all": walls,
+        "copy_out_ms": copy_ms, "held_bytes": held,
+        "solve_s": solve,
+        "first_fact_peak_bytes": first_peak,
+        "graph_static_bytes": held_by_graphs,
+        "peak_bytes": peaks,
+        "busy_ms_wall_ms": busy,
+        "idle_share": {k: (1 - b / w if b else None)
+                       for k, (b, w) in busy.items()},
+    }
+    log(f"[graphs {label}] " + json.dumps(rec))
+    return rec
 
 
 # --------------------------------------------------------------------
@@ -615,6 +780,21 @@ def main(argv=None) -> int:
     # the main path through the user entry point
     lu48, rec = drive("f64 laplacian_3d(48)", st.Options(), a48)
     report["main"] = rec
+    # new values on the same plan replay the captured factor graphs
+    import numpy as np
+    from superlu_dist_tpu_torch.ops import batched, graphs
+    sched48 = batched.get_schedule(lu48.plan)
+    n_graphs = graphs.graph_count(sched48)
+    scale = 1.0 + 0.1 * np.random.default_rng(1).random(a48.nnz)
+    a48v = st.CSRMatrix(a48.m, a48.n, a48.indptr, a48.indices,
+                        a48.data * scale)
+    _, recr = drive("f64 refactor (SAME_PATTERN_SAME_ROWPERM) "
+                    "laplacian_3d(48)",
+                    st.Options(fact=st.Fact.SAME_PATTERN_SAME_ROWPERM),
+                    a48v, lu=lu48)
+    if graphs.graph_count(sched48) != n_graphs:
+        raise RuntimeError("the refactorization captured new factor graphs")
+    report["refactor"] = recr
     opts32 = st.Options(fact=st.Fact.SAME_PATTERN_SAME_ROWPERM,
                         factor_dtype="float32", solve_dtype="float32")
     _, rec32 = drive("f32 factor + f64 refine laplacian_3d(48)", opts32,
@@ -628,11 +808,16 @@ def main(argv=None) -> int:
     _, recu = drive("f64 convection_diffusion_2d(200)", st.Options(), acd)
     report["unsym"] = recu
 
+    # the compiled-program layer, both arms
+    report["graphs"] = [graph_phase("staged laplacian_3d(48)", a48),
+                        graph_phase("whole phase convection_diffusion_2d"
+                                    "(200)", acd)]
+
     report["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    # 7. the lines the driver reads
+    # 8. the summary lines, the contract line last
     log(json.dumps(kernels_line(res, rec["launches"])))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -49,9 +49,12 @@ from .plan.plan import FactorPlan  # noqa: E402
 from .models.gssvx import (  # noqa: E402
     LUFactorization,
     factorize,
+    get_diag_u,
     gssvx,
     plan_factorization,
+    query_space,
     solve,
+    warm_solve,
 )
 
 __version__ = "0.1.0"
@@ -71,9 +74,12 @@ __all__ = [
     "FactorPlan",
     "LUFactorization",
     "factorize",
+    "get_diag_u",
     "gssvx",
     "plan_factorization",
+    "query_space",
     "resolve_device",
     "solve",
+    "warm_solve",
     "__version__",
 ]

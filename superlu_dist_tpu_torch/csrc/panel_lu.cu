@@ -9,7 +9,9 @@
 // F[wb:, wb:].  GESP tiny-pivot replacement sets |piv| < thresh to
 // sign(piv)*thresh; per-front counts of replaced pivots and of exact
 // zeros (thresh == 0) are accumulated into tiny[f] / nzero[f], one
-// writer per front at a time.
+// writer per front at a time.  thresh is read on the device from a
+// one-element float64 array, so a captured CUDA graph that launches the
+// kernel serves every threshold the host writes there before a replay.
 //
 // What bounds it on an H100: the trailing update F22 -= L21*U12 holds
 // almost all the operations (2*wb*(mb-wb)^2 per front).  Done once at
@@ -682,8 +684,10 @@ __host__ __device__ __forceinline__ int small_pad(int mb, int wb) {
 
 template <typename T, int G>
 __global__ void __launch_bounds__(NT)
-lu_small(T* __restrict__ F, int64_t N, int mb, int wb, T thresh,
-         int* __restrict__ tiny, int* __restrict__ nzero) {
+lu_small(T* __restrict__ F, int64_t N, int mb, int wb,
+         const double* __restrict__ thp, int* __restrict__ tiny,
+         int* __restrict__ nzero) {
+  const T thresh = static_cast<T>(*thp);
   using V = typename Vec16<T>::type;
   constexpr int E = 16 / sizeof(T);
   constexpr int NG = NT / G, NW = G / 32;
@@ -890,8 +894,8 @@ __device__ __forceinline__ T* inv_block(T* work, const Work& w, int64_t f,
 template <typename T>
 __global__ void __launch_bounds__(NT)
 panel_step(T* __restrict__ F, T* __restrict__ work, int mb, int wb, int j,
-           T thresh, int* __restrict__ tiny, int* __restrict__ nzero,
-           bool busy) {
+           const double* __restrict__ thp, int* __restrict__ tiny,
+           int* __restrict__ nzero, bool busy) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* R0 = reinterpret_cast<T*>(smem_raw);
   T* R1 = R0 + REG;
@@ -956,6 +960,7 @@ panel_step(T* __restrict__ F, T* __restrict__ work, int mb, int wb, int j,
     load_block(R1, LDD, Ff + k0 * mb + k0, mb, kb, kb, PB, PB);
     __syncthreads();
     int ltiny = 0, lzero = 0;
+    const T thresh = static_cast<T>(*thp);
     if (busy) {
       factor_diag(R1, kb, thresh, ltiny, lzero);
       invert_diag(R1, kb, R0, R2);
@@ -1148,7 +1153,7 @@ cudaError_t set_smem(K kernel, int64_t bytes) {
 // elements (unused by the small regime)
 template <typename T>
 int run(void* Fv, void* workv, int64_t N, int64_t mb, int64_t wb,
-        int64_t regime, double thresh, void* tiny, void* nzero,
+        int64_t regime, const void* thresh, void* tiny, void* nzero,
         void* stream) {
   if (N <= 0) return 0;
   if (wb < 1 || wb > mb || mb > (1 << 20))
@@ -1157,7 +1162,7 @@ int run(void* Fv, void* workv, int64_t N, int64_t mb, int64_t wb,
   T* work = static_cast<T*>(workv);
   int* tn = static_cast<int*>(tiny);
   int* zn = static_cast<int*>(nzero);
-  const T th = static_cast<T>(thresh);
+  const double* th = static_cast<const double*>(thresh);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (regime == 0) {
@@ -1225,7 +1230,8 @@ int run(void* Fv, void* workv, int64_t N, int64_t mb, int64_t wb,
 
 extern "C" int slu_panel_lu_f32(void* F, void* work, int64_t N,
                                 int64_t mb, int64_t wb, int64_t regime,
-                                double thresh, void* tiny, void* nzero,
+                                const void* thresh, void* tiny,
+                                void* nzero,
                                 void* stream) {
   return run<float>(F, work, N, mb, wb, regime, thresh, tiny, nzero,
                     stream);
@@ -1233,7 +1239,8 @@ extern "C" int slu_panel_lu_f32(void* F, void* work, int64_t N,
 
 extern "C" int slu_panel_lu_f64(void* F, void* work, int64_t N,
                                 int64_t mb, int64_t wb, int64_t regime,
-                                double thresh, void* tiny, void* nzero,
+                                const void* thresh, void* tiny,
+                                void* nzero,
                                 void* stream) {
   return run<double>(F, work, N, mb, wb, regime, thresh, tiny, nzero,
                      stream);

@@ -19,6 +19,14 @@ import os
 FLAGS: dict[str, str] = {
     # --- kernel build (ops/_cuda.py) ---
     "SLU_KERNEL_BUILD_DIR": "directory the CUDA kernels are built into (default superlu_dist_tpu_torch/_build)",
+    # --- compiled-program layer (ops/batched.py, ops/trisolve.py;
+    # the reference's switches, names and defaults) ---
+    "SLU_STAGED": "staged factorization (one CUDA graph per merged segment): 1 on, 0 off, auto (default) on past SLU_STAGED_MIN_GROUPS groups",
+    "SLU_STAGED_MIN_GROUPS": "group count above which SLU_STAGED=auto stages (default 96)",
+    "SLU_FACTOR_MERGE_CELLS": "front cells (n_loc*mb*mb) at or below which a factor group joins a merged segment (default 65536; 0: one group per segment)",
+    "SLU_FACTOR_SEG_CELLS": "front-cell budget of one merged factor segment (default 1048576)",
+    "SLU_TRISOLVE_MERGE_CELLS": "panel cells (trim*mb*wb) at or below which a solve group joins a merged segment (default 65536)",
+    "SLU_TRISOLVE_SEG_CELLS": "panel-cell budget of one merged solve segment (default 1048576)",
 }
 
 EXTERNAL_PREFIXES: tuple = ("SUPERLU_",)

@@ -18,8 +18,7 @@ Every entry point runs on the CUDA device unless the caller passes
 
 Not ported yet (ROADMAP queue 1): complex systems (item 10), the
 host backend (ref_multifrontal), the perturbation ledger, health
-events, the condition gate, memory watermarks, get_diag_u and
-query_space.
+events, the condition gate and memory watermarks.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ import threading
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..numerics.errors import InvalidInputError
@@ -48,7 +48,7 @@ class LUFactorization:
     """Factorization handle: plan + device factors (LUstruct analog,
     SRC/superlu_ddefs.h:266-271)."""
     plan: FactorPlan
-    device_lu: Optional[batched.StagedLU] = None
+    device_lu: Optional[batched.StagedLU | batched.DeviceLU] = None
     a: Optional[CSRMatrix] = None         # kept for refinement residuals
     stats: Optional[Stats] = None
     options: Optional[Options] = None     # effective numeric options
@@ -214,6 +214,88 @@ def solve(lu: LUFactorization, b: np.ndarray,
         stats.refine_stalled = stalled
 
     return x[:, 0] if squeeze else x
+
+
+def solve_rhs_dtype(lu: LUFactorization) -> np.dtype:
+    """The dtype a plain float64 right-hand side has after the solve
+    path's promotion against the factors: the solve graphs' operand
+    dtype, which warm_solve must use to capture the graphs live
+    traffic replays.  An explicit Options.solve_dtype replaces the
+    float64 the promotion otherwise assumes of the right-hand side."""
+    opts = lu.effective_options
+    rhs = (np.dtype(opts.solve_dtype) if opts.solve_dtype is not None
+           else np.dtype(np.float64))
+    return np.promote_types(np.dtype(opts.factor_dtype), rhs)
+
+
+def warm_solve(lu: LUFactorization, nrhs_widths=(1,),
+               dtype=None) -> None:
+    """Capture the solve graphs for the given right-hand-side widths
+    with zero solves (a zero right-hand side is exact under the sweeps
+    and runs the very programs live traffic replays)."""
+    dt = np.dtype(dtype) if dtype is not None else solve_rhs_dtype(lu)
+    for k in nrhs_widths:
+        solve(lu, np.zeros((lu.n, int(k)), dtype=dt))
+
+
+def get_diag_u(lu: LUFactorization) -> np.ndarray:
+    """Diagonal of U in FACTOR column order (pdGetDiagU analog,
+    SRC/pdGetDiagU.c): diag(U)[final_col[j]] is original column j's
+    pivot.  Gathered on the device: only the n pivots cross to the
+    host, never the U slab."""
+    plan = lu.plan
+    fp = plan.frontal
+    xsup = fp.sym.part.xsup
+    d = lu.device_lu
+    vals, dst = [], []
+    for g, (_, U, _, _) in zip(d.schedule.groups, d.panels):
+        # a (wb, mb) row-major panel's diagonal is base + i·(mb+1)
+        idx = np.concatenate([
+            b * g.wb * g.mb + np.arange(int(fp.w[s])) * (g.mb + 1)
+            for b, s in zip(g.sup_pos, g.sup_ids)])
+        vals.append(U[torch.as_tensor(idx, device=U.device)])
+        dst += [int(xsup[s]) + np.arange(int(fp.w[s]))
+                for s in g.sup_ids]
+    out = np.empty(plan.n, dtype=np.dtype(d.dtype))
+    out[np.concatenate(dst)] = torch.cat(vals).cpu().numpy()
+    return out
+
+
+def _factor_tensors(d) -> list:
+    """A handle's device factors in a deterministic order: a StagedLU's
+    per-group panels, a DeviceLU's four slabs."""
+    return ([a for p in d.panels for a in p]
+            if isinstance(d, batched.StagedLU) else list(d.flats()))
+
+
+def factor_arrays(lu: LUFactorization) -> list:
+    """The numeric factor payload as host arrays (an O(factor bytes)
+    transfer, for once-per-factorization save and validate paths,
+    never a solve)."""
+    return [a.cpu().numpy() for a in _factor_tensors(lu.device_lu)]
+
+
+def factors_finite(lu: LUFactorization) -> bool:
+    """True when every factor entry is finite: a NaN/Inf-poisoned factor
+    gives silently wrong solves under GESP (no runtime pivoting to
+    catch it).  Checked on the device, one sync."""
+    return bool(torch.stack([torch.isfinite(a).all() for a in
+                             _factor_tensors(lu.device_lu)]).all())
+
+
+def query_space(lu: LUFactorization) -> dict:
+    """LU storage accounting (dQuerySpace_dist analog,
+    SRC/superlu_ddefs.h:616): true nnz(L+U) and the bytes the device
+    factors hold (padded panels)."""
+    itemsize = np.dtype(lu.effective_options.factor_dtype).itemsize
+    nnz = lu.plan.lu_nnz()
+    d = lu.device_lu
+    if isinstance(d, batched.StagedLU):
+        held = d.held_bytes()
+    else:
+        held = sum(f.numel() * f.element_size() for f in d.flats())
+    return {"lu_nnz": nnz, "lu_bytes": nnz * itemsize,
+            "held_bytes": int(held)}
 
 
 def gssvx(options: Options | None, a: CSRMatrix, b: np.ndarray,

@@ -9,9 +9,10 @@ Nothing here runs at import time: the CPU tests import every module
 and have neither nvcc nor a card.
 
 Calling convention of every exported launcher: device pointers and the
-CUDA stream as `void*`, sizes as `int64_t`, scalars as `double`; the
-return value is the `cudaGetLastError()` after the launches (0 = ok),
-and `slu_cuda_errstr(code)` names it.
+CUDA stream as `void*`, sizes as `int64_t`, and a scalar that a
+captured CUDA graph must read afresh on every replay (K1's threshold)
+as a device pointer; the return value is the `cudaGetLastError()`
+after the launches (0 = ok), and `slu_cuda_errstr(code)` names it.
 """
 
 from __future__ import annotations
@@ -99,15 +100,14 @@ def build_all(verbose: bool = False) -> dict:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
-_D = ctypes.c_double
 
 # exported launchers and their argument lists
 _SIGNATURES = {
     "panel_lu": {
-        # F, work, N, mb, wb, regime (0 small, 1 large), thresh, tiny,
-        # nzero, stream
-        "slu_panel_lu_f32": [_P, _P, _I, _I, _I, _I, _D, _P, _P, _P],
-        "slu_panel_lu_f64": [_P, _P, _I, _I, _I, _I, _D, _P, _P, _P],
+        # F, work, N, mb, wb, regime (0 small, 1 large), thresh (one
+        # float64 on the device), tiny, nzero, stream
+        "slu_panel_lu_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        "slu_panel_lu_f64": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     },
     "ea_scatter": {
         # F, upd, so, st, pr, fronts, seg, nfronts, rc_b, mb, head_dst,

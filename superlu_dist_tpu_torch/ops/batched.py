@@ -20,26 +20,33 @@ one device: its zone, cooperative and sharded branches never engage
 there and are left out, and every index array equals the reference's
 (tests/test_torch_schedule.py).
 
-Execution is eager, one group at a time, with the extend-add slab
-`upd_buf` updated in place: the reference donated the slab into each
-staged group program so it streamed through the sequence without a
-copy; an in-place update of one tensor is the PyTorch form of that.
+Execution follows the reference's compiled-program layer: the staged
+arm runs one program per merged segment of consecutive groups, the
+whole-phase arm one program for all of them (`factorize_device`).  A
+program is a captured CUDA graph on the card (ops/graphs.py) and the
+same Python body run eagerly on the CPU.  The extend-add slab `upd`
+is updated in place: the reference donated it into each program so it
+streamed through the sequence without a copy, and an in-place update
+of one static tensor is the PyTorch form of that.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from .. import flags
 from ..device import torch_dtype, upload_int64
 from ..plan.plan import FactorPlan
+from . import graphs
 from .dense_lu import unit_lower_inverse, upper_inverse
 from .ea_scatter import (NARROW, EaBucket, destination_lists,
                          ea_scatter_add)
-from .panel_lu import partial_lu_batch
+from .panel_lu import launch_plan, partial_lu_batch
 
 
 def _next_bucket(x: int) -> int:
@@ -554,11 +561,13 @@ def _ea_add_blocks(F2: torch.Tensor, upd_buf: torch.Tensor,
 
 
 def factor_group(g: GroupSpec, vals_ext: torch.Tensor,
-                 upd_buf: torch.Tensor, thresh: float):
+                 upd_buf: torch.Tensor, thresh, out):
     """One group's numeric factorization.  Reads the children's update
-    blocks from `upd_buf` and writes this group's into it, in place.
-    Returns ((L, U, Li, Ui) group-local flats, tiny, nzero) with the
-    counters as device scalars (no host sync per group)."""
+    blocks from `upd_buf` and writes this group's into it, in place,
+    and writes the group's (L, U, Li, Ui) panels into the four flat
+    views `out`.  `thresh` is a float or a one-element float64 tensor
+    on the device.  Returns (tiny, nzero) as device scalars (no host
+    sync per group)."""
     dtype = upd_buf.dtype
     device = upd_buf.device
     d = g.dev(device)
@@ -574,93 +583,378 @@ def factor_group(g: GroupSpec, vals_ext: torch.Tensor,
     _ea_add_blocks(Ff.view(n_pad * mb, mb), upd_buf, d.eb)
     F, tiny, nzero = partial_lu_batch(F, thresh, wb=wb)
 
+    L, U, Li, Ui = (o.view(shape) for o, shape in zip(
+        out, ((n_pad, mb, wb), (n_pad, wb, mb), (n_pad, wb, wb),
+              (n_pad, wb, wb))))
     rows = torch.arange(mb, device=device)[:, None]
     colsw = torch.arange(wb, device=device)[None, :]
     zero = torch.zeros((), dtype=dtype, device=device)
-    Lpanel = torch.where(rows > colsw, F[:, :, :wb],
-                         (rows == colsw).to(dtype))
-    Upanel = torch.where(colsw.T <= torch.arange(mb, device=device)[None, :],
-                         F[:, :wb, :], zero)
-    Li = unit_lower_inverse(Lpanel[:, :wb, :])
-    Ui = upper_inverse(Upanel[:, :, :wb])
+    torch.where(rows > colsw, F[:, :, :wb], (rows == colsw).to(dtype),
+                out=L)
+    torch.where(colsw.T <= torch.arange(mb, device=device)[None, :],
+                F[:, :wb, :], zero, out=U)
+    Li.copy_(unit_lower_inverse(L[:, :wb, :]))
+    Ui.copy_(upper_inverse(U[:, :, :wb]))
     if mb > wb:
         rb = mb - wb
         off = g.upd_off_global
         upd_buf[off:off + n_pad * rb * rb].view(n_pad, rb, rb).copy_(
             F[:, wb:, wb:])
-    panels = (Lpanel.reshape(-1), Upanel.reshape(-1),
-              Li.reshape(-1), Ui.reshape(-1))
-    return panels, tiny, nzero
+    return tiny, nzero
+
+
+def _group_views(sched: BatchedSchedule, flats) -> list:
+    """Per-group (L, U, Li, Ui) views into the four whole-slab flats at
+    the groups' cumulative offsets."""
+    L, U, Li, Ui = flats
+    out = []
+    for g in sched.groups:
+        n, mb, wb = g.n_loc, g.mb, g.wb
+        out.append((L[g.L_off:g.L_off + n * mb * wb],
+                    U[g.U_off:g.U_off + n * wb * mb],
+                    Li[g.Li_off:g.Li_off + n * wb * wb],
+                    Ui[g.Ui_off:g.Ui_off + n * wb * wb]))
+    return out
+
+
+class FactorBuffers:
+    """The tensors one factor sweep reads and writes: the scaled values
+    with the zero slot appended, the extend-add slab `upd` (streamed
+    through the groups in place), the GESP threshold (one float64, read
+    by K1 on the device), the (tiny, zero) pivot counters and the four
+    panel slabs.  A captured sweep keeps one set as its static tensors;
+    an eager sweep makes a fresh one."""
+
+    def __init__(self, sched: BatchedSchedule, nnz: int, dtype,
+                 device):
+        z = dict(dtype=torch_dtype(dtype), device=device)
+        self.vals_ext = torch.zeros(nnz + 1, **z)
+        self.upd = torch.zeros(sched.upd_total + sched.upd_pad, **z)
+        self.thresh = torch.zeros(1, dtype=torch.float64, device=device)
+        self.counts = torch.zeros(2, dtype=torch.int64, device=device)
+        self.flats = tuple(torch.empty(n, **z) for n in (
+            sched.L_total, sched.U_total, sched.Li_total, sched.Ui_total))
+        self.views = _group_views(sched, self.flats)
+
+    def load(self, vals: np.ndarray, thresh: float) -> None:
+        """Fill the inputs of one factorization and clear the rest."""
+        v = torch.from_numpy(np.ascontiguousarray(vals))
+        self.vals_ext[:-1].copy_(v)
+        self.thresh.fill_(thresh)
+        self.counts.zero_()
+        self.upd.zero_()
+
+
+# --------------------------------------------------------------------
+# staged execution and level-merged factor segments: the reference's
+# compiled-program layer.  The reference runs one jitted program per
+# merged SEGMENT of consecutive groups (buffers donated, so the
+# extend-add slab streams through them in place), or, below
+# SLU_STAGED_MIN_GROUPS groups, one program for the whole factor
+# sweep.  Here each such program is one captured CUDA graph on the
+# card (ops/graphs.py) and the same Python body run eagerly on the
+# CPU; the member bodies are `factor_group` in schedule order either
+# way, so the arms differ only in where the graph boundaries fall.
+# --------------------------------------------------------------------
+
+def staged_enabled(sched) -> bool:
+    """Use per-segment staged execution?  SLU_STAGED=1 forces on, =0
+    forces off; default: on past SLU_STAGED_MIN_GROUPS groups."""
+    v = flags.env_str("SLU_STAGED", "auto").strip().lower()
+    if v in ("1", "true", "on"):
+        return True
+    if v in ("0", "false", "off"):
+        return False
+    try:
+        thresh = flags.env_int("SLU_STAGED_MIN_GROUPS", 96)
+    except ValueError:
+        thresh = 96
+    return len(sched.groups) > thresh
+
+
+FACTOR_MERGE_CELLS_DEFAULT = 65536
+
+
+def factor_merge_cells() -> int:
+    """A factor group whose front-cell count (n_loc · mb · mb) is at or
+    below this joins a merged segment (SLU_FACTOR_MERGE_CELLS, default
+    65536); 0 gives one group per segment (the reference's legacy
+    per-group staged dispatch)."""
+    try:
+        return max(0, flags.env_int("SLU_FACTOR_MERGE_CELLS",
+                                    FACTOR_MERGE_CELLS_DEFAULT))
+    except ValueError:
+        return FACTOR_MERGE_CELLS_DEFAULT
+
+
+def factor_seg_cells() -> int:
+    """Total front-cell budget of one merged factor segment
+    (SLU_FACTOR_SEG_CELLS, default 1048576)."""
+    try:
+        return max(1, flags.env_int("SLU_FACTOR_SEG_CELLS", 1048576))
+    except ValueError:
+        return 1048576
+
+
+def factor_merge_on() -> bool:
+    return factor_merge_cells() > 0
+
+
+def compute_factor_segments(sched, cells: int | None = None,
+                            cap: int | None = None) -> list:
+    """Group indices per merged segment, in schedule order: groups at
+    or below the `cells` bound chain into the open segment until `cap`;
+    a large group stands alone."""
+    cells = factor_merge_cells() if cells is None else cells
+    cap = factor_seg_cells() if cap is None else cap
+    segments: list = []
+    cur: list = []
+    cur_cells = 0
+    for gi, g in enumerate(sched.groups):
+        c = g.n_loc * g.mb * g.mb
+        small = c <= cells
+        if cur and ((not small) or cur_cells + c > cap):
+            segments.append(cur)
+            cur, cur_cells = [], 0
+        cur.append(gi)
+        cur_cells += c
+        if not small:
+            segments.append(cur)
+            cur, cur_cells = [], 0
+    if cur:
+        segments.append(cur)
+    return segments
+
+
+def get_factor_segments(sched) -> list:
+    """Cached factor segments of a schedule, keyed by the merge knobs
+    (a flag change mid-process rebuilds instead of reusing a stale
+    layout)."""
+    cache = sched.__dict__.setdefault("_factor_segments", {})
+    key = (factor_merge_cells(), factor_seg_cells())
+    if key not in cache:
+        cache[key] = compute_factor_segments(sched)
+    return cache[key]
+
+
+def factor_seg_metas(sched, members, dtype) -> tuple:
+    """The static meta tuple of one factor segment's members, in
+    schedule order: (mb, wb, n_loc, ea_meta, eb_meta, K1 regime) each.
+    The last leg is the port's K1 regime (ops/panel_lu.launch_plan),
+    where the reference has its Pallas promotion decision; it shapes
+    what a graph captures, so it keys the graph."""
+    tdt = torch_dtype(np.dtype(dtype))
+    return tuple(
+        (g.mb, g.wb, g.n_loc, g.ea_meta, g.eb_meta,
+         launch_plan(g.n_loc, g.mb, g.wb, tdt).regime)
+        for g in (sched.groups[i] for i in members))
+
+
+def factor_arm() -> str:
+    """One-token name of the factor-sweep arm: "merged" (segments of
+    several groups) or "legacy" (one group per segment)."""
+    return "merged" if factor_merge_on() else "legacy"
+
+
+def factor_graph_key(sched, seg, dtype) -> tuple:
+    """The graph key of one factor segment: its members and their
+    metas.  A graph bakes its operands' addresses, so unlike the
+    reference's jit key it names the members, not their shapes
+    alone."""
+    return (tuple(seg), factor_seg_metas(sched, seg, dtype))
+
+
+def _staged_factor_segment(sched, members, buf: FactorBuffers) -> None:
+    """The factor sweep over `members` (group indices in schedule order)
+    on the buffers: one staged segment's body, and over every group the
+    whole phase's."""
+    for i in members:
+        g = sched.groups[i]
+        t, z = factor_group(g, buf.vals_ext, buf.upd, buf.thresh,
+                            buf.views[i])
+        buf.counts += torch.stack((t, z))
+
+
+def _factor_graphs(sched, nnz: int, dtype, device, staged: bool):
+    """The GraphSet of a (schedule, dtype, arm): the staged segments'
+    graphs or the whole-phase graph, with one FactorBuffers."""
+    key = (("staged", np.dtype(dtype).str) if staged
+           else ("phase", np.dtype(dtype).str, "merged"))
+    return graphs.graph_set(
+        sched, key, device,
+        lambda: FactorBuffers(sched, nnz, dtype, device))
+
+
+def _factor_programs(sched, dtype, staged: bool, buf: FactorBuffers):
+    """[(graph key, body)] of one factor sweep on `buf`: one program
+    per merged segment (`staged`), or one for all groups."""
+    if not staged:
+        return [("all", partial(_staged_factor_segment, sched,
+                                range(len(sched.groups)), buf))]
+    return [(factor_graph_key(sched, seg, dtype),
+             partial(_staged_factor_segment, sched, seg, buf))
+            for seg in get_factor_segments(sched)]
+
+
+def _staged_factor_run(sched, vals, thresh: float, dtype, device,
+                       staged: bool = True, eager: bool = False):
+    """One factor sweep by the staged or the whole-phase arm.  Returns
+    (flats, counts): the four panel slabs, the caller's own (on the
+    card a copy of the graphs' static slabs), and the (tiny, zero)
+    counters as a device tensor, for the caller to read once."""
+    if eager or not graphs.on_card(device):
+        buf = FactorBuffers(sched, len(vals), dtype, device)
+        buf.load(vals, thresh)
+        for _, body in _factor_programs(sched, dtype, staged, buf):
+            body()
+        return buf.flats, buf.counts
+    gset = _factor_graphs(sched, len(vals), dtype, device, staged)
+    buf = gset.static
+    with gset.lock:
+        buf.load(vals, thresh)
+        for key, body in _factor_programs(sched, dtype, staged, buf):
+            gset.run(key, body)
+        counts = buf.counts.clone()
+        # a replay writes the same addresses every time: the handle
+        # takes its own copy of the slabs
+        return tuple(f.clone() for f in buf.flats), counts
+
+
+def capture_staged(plan: FactorPlan, dtype, device) -> int:
+    """Capture every staged segment graph of the plan's schedule for
+    `dtype` on the card without running it (utils/warmup.py).  Returns
+    the number of graphs captured now."""
+    sched = get_schedule(plan)
+    device = torch.device(device)
+    sched.to_device(device)
+    gset = _factor_graphs(sched, len(plan.coo_rows), dtype, device, True)
+    with gset.lock:
+        return sum(gset.capture(key, body) for key, body in
+                   _factor_programs(sched, dtype, True, gset.static))
 
 
 @dataclasses.dataclass
 class StagedLU:
-    """Device factors in per-group panels: panels[i] = (L, U, Li, Ui)
-    group-local flats of group i.  Concatenated in group order they
-    are the reference's DeviceLU flat slab layout (offsets L_off,
-    U_off, Li_off, Ui_off are cumulative in group order)."""
+    """Device factors in per-group panels (the staged arm):
+    panels[i] = (L, U, Li, Ui) group-local flats of group i.
+    Concatenated in group order they are the DeviceLU slab layout
+    (offsets L_off, U_off, Li_off, Ui_off are cumulative in group
+    order)."""
     plan: FactorPlan
     schedule: BatchedSchedule
     dtype: np.dtype
     panels: list
     tiny_pivots: int
-    _packs: Optional[list] = dataclasses.field(default=None, repr=False)
 
     @property
     def device(self) -> torch.device:
         return self.panels[0][0].device
 
     def flats(self):
-        """The reference's DeviceLU form: (L, U, Li, Ui) whole-slab
-        flats."""
+        """The DeviceLU form: (L, U, Li, Ui) whole-slab flats."""
         return tuple(torch.cat([p[i] for p in self.panels])
                      for i in range(4))
 
+    def held_bytes(self) -> int:
+        return sum(a.numel() * a.element_size()
+                   for p in self.panels for a in p)
+
+
+@dataclasses.dataclass
+class DeviceLU:
+    """Device factors as four flat slabs (the whole-phase arm; the
+    reference's dLocalLU_t analog), each group's panels at its
+    cumulative offsets."""
+    plan: FactorPlan
+    schedule: BatchedSchedule
+    dtype: np.dtype
+    L_flat: torch.Tensor
+    U_flat: torch.Tensor
+    Li_flat: torch.Tensor
+    Ui_flat: torch.Tensor
+    tiny_pivots: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.L_flat.device
+
+    def flats(self):
+        return (self.L_flat, self.U_flat, self.Li_flat, self.Ui_flat)
+
+    @property
+    def panels(self) -> list:
+        """Per-group (L, U, Li, Ui) views into the slabs (StagedLU's
+        layout)."""
+        return _group_views(self.schedule, self.flats())
+
+
+def _phase_fns(sched, dtype, device):
+    """The whole-phase programs of a (schedule, dtype): `factor(vals,
+    thresh)` runs the whole factor sweep as one program (on the card
+    one graph, captured once per (schedule, dtype) key) and returns
+    (flats, counts) as `_staged_factor_run` does; the solve of its
+    handles is the packed solve (trisolve.solve_packed), whose graphs
+    belong to the handle whose slabs they read."""
+    def factor(vals, thresh, eager=False):
+        return _staged_factor_run(sched, vals, thresh, dtype, device,
+                                  staged=False, eager=eager)
+    from . import trisolve
+    return factor, trisolve.solve_packed
+
 
 def factorize_device(plan: FactorPlan, scaled_vals: np.ndarray,
-                     dtype=np.float64, device="cuda") -> StagedLU:
-    """Numeric factorization of the plan's scaled values, one group at
-    a time.  Raises ZeroDivisionError on an exactly-zero pivot when
-    tiny-pivot replacement is off (the reference's info=i signal)."""
+                     dtype=np.float64, device="cuda",
+                     eager: bool = False):
+    """Numeric factorization of the plan's scaled values: the staged
+    arm (one program per merged segment, a StagedLU) past
+    SLU_STAGED_MIN_GROUPS groups or under SLU_STAGED=1, else the
+    whole-phase arm (one program, a DeviceLU).  On the card each
+    program is a CUDA graph, captured at its first use; `eager=True`
+    runs the same bodies eagerly there instead (the oracle of the card
+    tests and chip_smoke.py).  Raises ZeroDivisionError on an
+    exactly-zero pivot when tiny-pivot replacement is off (the
+    reference's info=i signal)."""
     dtype = np.dtype(dtype)
     if dtype.kind == "c":
         raise NotImplementedError(
             "complex factorization is not ported yet (ROADMAP queue 1 "
             "item 10, complex and pair lanes)")
     sched = get_schedule(plan)
-    tdt = torch_dtype(dtype)
     device = torch.device(device)
-    vals = torch.as_tensor(np.asarray(scaled_vals).astype(dtype))
-    vals_ext = torch.cat([vals, torch.zeros(1, dtype=tdt)]).to(device)
-    upd_buf = torch.zeros(sched.upd_total + sched.upd_pad, dtype=tdt,
-                          device=device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    vals = np.asarray(scaled_vals).astype(dtype)
     thresh = _thresh_for(plan, dtype)
+    # every index set is on the device before any capture
     sched.to_device(device)
-    panels = []
-    tiny = torch.zeros((), dtype=torch.int64, device=device)
-    nzero = torch.zeros((), dtype=torch.int64, device=device)
-    for g in sched.groups:
-        p, t, z = factor_group(g, vals_ext, upd_buf, thresh)
-        panels.append(p)
-        tiny += t
-        nzero += z
-    del upd_buf
-    nzero = int(nzero)
+    staged = staged_enabled(sched)
+    if staged:
+        flats, counts = _staged_factor_run(sched, vals, thresh, dtype,
+                                           device, eager=eager)
+    else:
+        factor, _ = _phase_fns(sched, dtype, device)
+        flats, counts = factor(vals, thresh, eager=eager)
+    tiny, nzero = counts.tolist()
     if nzero > 0:
         raise ZeroDivisionError(
             f"factorization hit {nzero} exactly-zero pivot(s); "
             "the matrix is singular (enable replace_tiny_pivot to "
             "perturb instead)")
-    return StagedLU(plan=plan, schedule=sched, dtype=dtype,
-                    panels=panels, tiny_pivots=int(tiny))
+    if staged:
+        return StagedLU(plan=plan, schedule=sched, dtype=dtype,
+                        panels=_group_views(sched, flats),
+                        tiny_pivots=tiny)
+    return DeviceLU(plan, sched, dtype, *flats, tiny_pivots=tiny)
 
 
 # --------------------------------------------------------------------
 # the solve entry points
 # --------------------------------------------------------------------
 
-def _solve_device_common(lu: StagedLU, b: np.ndarray,
-                         trans: bool) -> np.ndarray:
+def _solve_device_common(lu, b: np.ndarray, trans: bool,
+                         eager: bool = False) -> np.ndarray:
+    """Routed as the reference routes it: a StagedLU through the staged
+    segment sweeps, a DeviceLU through the packed solve."""
     from . import trisolve
     squeeze = b.ndim == 1
     bb = b[:, None] if squeeze else b
@@ -671,21 +965,22 @@ def _solve_device_common(lu: StagedLU, b: np.ndarray,
         raise NotImplementedError(
             "complex right-hand sides are not ported yet (ROADMAP "
             "queue 1 item 10, complex and pair lanes)")
-    ts = trisolve.get_trisolve(lu.schedule)
-    packs = trisolve.get_packs(lu)
-    bt = torch.as_tensor(np.ascontiguousarray(bb.astype(xdt))).to(
-        lu.device)
-    X = trisolve.sweep(ts, packs, bt, trans)
+    bt = torch.from_numpy(np.ascontiguousarray(bb.astype(xdt)))
+    if isinstance(lu, StagedLU):
+        X = trisolve.staged_sweeps(lu, bt, trans, eager=eager)
+    else:
+        X = trisolve.solve_packed(lu, bt, trans, eager=eager)
     out = X.cpu().numpy()
     return out[:, 0] if squeeze else out
 
 
-def solve_device(lu: StagedLU, b: np.ndarray) -> np.ndarray:
+def solve_device(lu, b: np.ndarray, eager: bool = False) -> np.ndarray:
     """b in factor ordering, (n,) or (n, nrhs); returns same shape."""
-    return _solve_device_common(lu, b, trans=False)
+    return _solve_device_common(lu, b, trans=False, eager=eager)
 
 
-def solve_device_trans(lu: StagedLU, b: np.ndarray) -> np.ndarray:
+def solve_device_trans(lu, b: np.ndarray,
+                       eager: bool = False) -> np.ndarray:
     """Solve Mᵀ·x = b (factor ordering): forward with Uᵀ, backward
     with Lᵀ over the same group schedule."""
-    return _solve_device_common(lu, b, trans=True)
+    return _solve_device_common(lu, b, trans=True, eager=eager)

@@ -141,12 +141,17 @@ def _tiny_replace(piv: torch.Tensor, thresh: float):
     return newpiv, is_tiny.to(torch.int32), was_zero.to(torch.int32)
 
 
-def partial_lu_batch(F: torch.Tensor, thresh: float, *, wb: int,
+def partial_lu_batch(F: torch.Tensor, thresh, *, wb: int,
                      nb: int = 32):
     """Factor the leading `wb` columns of each front of F (N, mb, mb)
-    in place.  Returns (F, tiny_count, zero_pivot_count), the counts
-    as int64 scalars summed over the fronts."""
+    in place; `thresh` is a float or a one-element tensor.  Returns
+    (F, tiny_count, zero_pivot_count), the counts as int64 scalars
+    summed over the fronts."""
     N, mb, _ = F.shape
+    if isinstance(thresh, torch.Tensor):
+        # a one-element tensor (K1's device threshold) compares in F's
+        # dtype, as a Python float does
+        thresh = thresh.to(F.dtype).reshape(())
     nb = min(nb, wb)
     if wb % nb:
         raise ValueError(f"width bucket {wb} is not a multiple of the "

@@ -24,11 +24,15 @@ The shared-memory sizes and grids here mirror `run` in panel_lu.cu.
 `partial_lu_batch.launches` counts the wrapper calls that launched the
 kernel (one per group; `launch_plan(...).kernels` says how many CUDA
 kernels each call runs).
+
+The kernel reads the GESP threshold on the device, from a one-element
+float64 tensor: a CUDA graph that captured the call (ops/graphs.py)
+then serves every threshold the host writes into that tensor before a
+replay, where a threshold passed by value would stay the one captured.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
@@ -108,11 +112,12 @@ def launch_plan(N: int, mb: int, wb: int, dtype) -> LaunchPlan:
                       tuple(grids), work)
 
 
-def partial_lu_batch(F: torch.Tensor, thresh: float, *, wb: int,
+def partial_lu_batch(F: torch.Tensor, thresh, *, wb: int,
                      nb: int = 32):
     """Partial LU of the leading `wb` columns of each front of F
-    (N, mb, mb), in place.  Returns (F, tiny, nzero), the counts as
-    int64 scalar tensors on F's device.  `nb` is the plain version's
+    (N, mb, mb), in place.  `thresh` is a float or a one-element
+    float64 tensor on F's device.  Returns (F, tiny, nzero), the counts
+    as int64 scalar tensors on F's device.  `nb` is the plain version's
     block (the kernel blocks by `launch_plan`)."""
     if F.device.type == "cpu":
         return partial_lu_batch_plain(F, thresh, wb=wb, nb=nb)
@@ -122,6 +127,13 @@ def partial_lu_batch(F: torch.Tensor, thresh: float, *, wb: int,
     if mb != mb2 or not F.is_contiguous():
         raise ValueError("partial_lu_batch: F must be a contiguous "
                          "(N, mb, mb) batch")
+    if not isinstance(thresh, torch.Tensor):
+        thresh = torch.full((1,), float(thresh), dtype=torch.float64,
+                            device=F.device)
+    elif (thresh.dtype != torch.float64 or thresh.numel() != 1
+          or thresh.device != F.device):
+        raise ValueError("partial_lu_batch: thresh must be a float or a "
+                         "one-element float64 tensor on F's device")
     plan = launch_plan(N, mb, wb, F.dtype)
     lib = _cuda.library("panel_lu")
     tiny = torch.zeros(N, dtype=torch.int32, device=F.device)
@@ -130,8 +142,8 @@ def partial_lu_batch(F: torch.Tensor, thresh: float, *, wb: int,
     fn = (lib.slu_panel_lu_f64 if F.dtype == torch.float64
           else lib.slu_panel_lu_f32)
     rc = fn(F.data_ptr(), work.data_ptr() if plan.work_elems else None,
-            N, mb, wb, _REGIME_CODE[plan.regime],
-            ctypes.c_double(float(thresh)), tiny.data_ptr(),
+            N, mb, wb, _REGIME_CODE[plan.regime], thresh.data_ptr(),
+            tiny.data_ptr(),
             nzero.data_ptr(), _cuda.stream_ptr(F))
     _cuda.check(lib, rc, "panel_lu")
     partial_lu_batch.launches += 1

@@ -16,20 +16,50 @@ schedule:
 The forward step of each non-transposed group with update rows runs
 kernel K3 (ops/lsum.py); the transposed lane and the backward sweep
 are PyTorch batched products.  `build_trisolve` is the reference's at
-one device, and its index arrays equal the reference's
-(tests/test_torch_schedule.py).
+one device, and its index arrays and merged segments equal the
+reference's (tests/test_torch_schedule.py, tests/test_torch_staged.py).
+
+The sweeps run as the reference's compiled programs do: a StagedLU
+through one program per merged forward segment and one per backward
+segment (`staged_sweeps`), a DeviceLU through one packed program for
+the whole solve (`solve_packed`).  On the card a program is a CUDA
+graph (ops/graphs.py) owned by the factor handle, since it reads that
+handle's panels, and keyed by (nrhs, trans, rhs dtype); on the CPU the
+same bodies run eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import List
 
 import numpy as np
 import torch
 
+from .. import flags
 from ..device import upload_int64
+from . import graphs
 from .lsum import lsum_panel
+
+
+def merge_cells_limit() -> int:
+    """A group whose panel-cell count (trim · mb · wb) is at or below
+    this joins a merged segment (SLU_TRISOLVE_MERGE_CELLS, default
+    65536); larger groups stand alone."""
+    try:
+        return max(0, flags.env_int("SLU_TRISOLVE_MERGE_CELLS", 65536))
+    except ValueError:
+        return 65536
+
+
+def seg_cells_limit() -> int:
+    """Total panel-cell budget of one merged segment
+    (SLU_TRISOLVE_SEG_CELLS, default 1048576)."""
+    try:
+        return max(1, flags.env_int("SLU_TRISOLVE_SEG_CELLS", 1048576))
+    except ValueError:
+        return 1048576
 
 
 @dataclasses.dataclass
@@ -51,10 +81,11 @@ class GroupSolve:
 class TrisolveSchedule:
     """The precomputed lsum layout for one BatchedSchedule: dense slot
     spaces for the forward outputs (Y, reused by the backward sweep's
-    XF) and the off-diagonal update buffer (UPD), and per-group
-    contributor gathers."""
+    XF) and the off-diagonal update buffer (UPD), per-group
+    contributor gathers, and the merged segments."""
     sched: object                    # ops.batched.BatchedSchedule
     groups: List[GroupSolve]         # parallel to sched.groups
+    segments: List[List[int]]        # group indices per segment
     y_total: int                     # Y/XF slots (+1 sentinel)
     u_total: int                     # UPD slots (+1 sentinel)
     final_idx: np.ndarray            # (n,) row -> XF slot
@@ -152,43 +183,82 @@ def build_trisolve(sched) -> TrisolveSchedule:
         gs.xs_idx = slot_of[np.minimum(si, n)].astype(np.int64)
     final_idx = slot_of[:n].astype(np.int64)
 
+    # merged segments (the single-device branch of the reference's
+    # level-merge pass): chains of small consecutive groups fold into
+    # one program
+    cells = merge_cells_limit()
+    seg_cap = seg_cells_limit()
+    segments: List[List[int]] = []
+    cur: List[int] = []
+    cur_cells = 0
+    for g, gs in zip(groups, gsolves):
+        c = gs.trim * g.mb * g.wb
+        small = c <= cells
+        if cur and ((not small) or cur_cells + c > seg_cap):
+            segments.append(cur)
+            cur, cur_cells = [], 0
+        cur.append(gs.gi)
+        cur_cells += c
+        if not small:
+            segments.append(cur)
+            cur, cur_cells = [], 0
+    if cur:
+        segments.append(cur)
+
     return TrisolveSchedule(sched=sched, groups=gsolves,
-                            y_total=y_total,
+                            segments=segments, y_total=y_total,
                             u_total=u_total, final_idx=final_idx)
 
 
+def _limits_key() -> tuple:
+    return (merge_cells_limit(), seg_cells_limit())
+
+
 def get_trisolve(sched) -> TrisolveSchedule:
-    """The schedule's lsum layout, built once and cached on it."""
-    if "_trisolve" not in sched.__dict__:
-        sched._trisolve = build_trisolve(sched)
-    return sched._trisolve
+    """The schedule's lsum layout, cached on it per segmenting knobs (a
+    flag change mid-process takes effect)."""
+    cache = sched.__dict__.setdefault("_trisolve", {})
+    key = _limits_key()
+    if key not in cache:
+        cache[key] = build_trisolve(sched)
+    return cache[key]
 
 
-def pack_panels_staged(ts: TrisolveSchedule, panels):
-    """Per-group (Li, L21, Ui, U12) views into the factor panels
-    (group-local flats), dead lanes dropped.  No copies: L21 and U12
-    are strided views."""
-    sched = ts.sched
-    packs = []
-    for g, gs, p in zip(sched.groups, ts.groups, panels):
-        t, wb, mb = gs.trim, g.wb, g.mb
-        L, U, Li, Ui = p
-        Lp = L.view(g.n_loc, mb, wb)
-        Up = U.view(g.n_loc, wb, mb)
-        packs.append((Li.view(g.n_loc, wb, wb)[:t],
-                      Lp[:t, wb:, :],
-                      Ui.view(g.n_loc, wb, wb)[:t],
-                      Up[:t, :, wb:]))
+def _pack(g, t: int, L, U, Li, Ui) -> tuple:
+    """(Li, L21, Ui, U12) of one group's panels, dead lanes dropped: no
+    copies, L21 and U12 are strided views."""
+    wb, mb = g.wb, g.mb
+    Lp = L.view(g.n_loc, mb, wb)
+    Up = U.view(g.n_loc, wb, mb)
+    return (Li.view(g.n_loc, wb, wb)[:t], Lp[:t, wb:, :],
+            Ui.view(g.n_loc, wb, wb)[:t], Up[:t, :, wb:])
+
+
+def pack_panels(ts: TrisolveSchedule, flats) -> list:
+    """Per-group packed panels sliced out of the four DeviceLU slabs at
+    the groups' offsets."""
+    from .batched import _group_views
+    return pack_panels_staged(ts, _group_views(ts.sched, flats))
+
+
+def pack_panels_staged(ts: TrisolveSchedule, panels) -> list:
+    """pack_panels over StagedLU's per-group local flats."""
+    return [_pack(g, gs.trim, *p)
+            for g, gs, p in zip(ts.sched.groups, ts.groups, panels)]
+
+
+def get_packs(lu) -> list:
+    """Per-handle packed panels (a StagedLU's or a DeviceLU's), built
+    once per factorization on the first solve and cached on the
+    handle."""
+    packs = lu.__dict__.get("_packs")
+    if packs is None:
+        from .batched import StagedLU
+        ts = get_trisolve(lu.schedule)
+        packs = lu.__dict__["_packs"] = (
+            pack_panels_staged(ts, lu.panels) if isinstance(lu, StagedLU)
+            else pack_panels(ts, lu.flats()))
     return packs
-
-
-def get_packs(lu):
-    """Per-handle packed panels, built once per factorization on the
-    first solve and cached on the handle."""
-    if lu._packs is None:
-        lu._packs = pack_panels_staged(get_trisolve(lu.schedule),
-                                       lu.panels)
-    return lu._packs
 
 
 def chain_subtract(xb: torch.Tensor, UPD: torch.Tensor,
@@ -204,16 +274,27 @@ def chain_subtract(xb: torch.Tensor, UPD: torch.Tensor,
     return xb
 
 
-def init_lsum_buffers(ts: TrisolveSchedule, B0: torch.Tensor):
-    """(B, UPD, Y) dense buffers for one sweep: B is the right-hand
-    side with a zero sentinel row appended, UPD/Y zero-initialized
-    with their zero sentinel slots (the gathers' padding targets)."""
-    R = B0.shape[-1]
-    z = dict(dtype=B0.dtype, device=B0.device)
-    B = torch.cat([B0, torch.zeros((1, R), **z)])
-    UPD = torch.zeros((ts.u_total + 1, R), **z)
-    Y = torch.zeros((ts.y_total + 1, R), **z)
-    return B, UPD, Y
+class SolveBuffers:
+    """The dense buffers of one sweep, in the solve dtype: B (the
+    right-hand side with a zero sentinel row appended), UPD, Y and XF
+    (zero-initialised, each with its zero sentinel slot, the gathers'
+    padding target; every other slot is written before it is read) and
+    the solution X.  A captured solve keeps one set as its static
+    tensors (the sentinels are never written, so they stay zero); an
+    eager solve makes a fresh one.  The reference's
+    `init_lsum_buffers`."""
+
+    def __init__(self, ts: TrisolveSchedule, R: int, dtype, device):
+        z = dict(dtype=dtype, device=device)
+        n = ts.sched.n
+        self.B = torch.zeros((n + 1, R), **z)
+        self.UPD = torch.zeros((ts.u_total + 1, R), **z)
+        self.Y = torch.zeros((ts.y_total + 1, R), **z)
+        self.XF = torch.zeros((ts.y_total + 1, R), **z)
+        self.X = torch.empty((n, R), **z)
+
+    def load(self, b: torch.Tensor) -> None:
+        self.B[:-1].copy_(b)
 
 
 def _fwd_member(state, g, gs, pack, idx, trans: bool):
@@ -268,22 +349,111 @@ def _bwd_member(XF, Y, g, gs, pack, idx, trans: bool):
     return XF
 
 
-def sweep(ts: TrisolveSchedule, packs, b: torch.Tensor,
-          trans: bool) -> torch.Tensor:
-    """The full merged triangular solve: b (n, nrhs) in factor
-    ordering, on the factors' device, in the solve dtype -> x."""
+def seg_metas(ts: TrisolveSchedule, members, cplx: bool = False) -> tuple:
+    """The static meta tuple of one solve segment's members, in the
+    given order: (wb, mb, trim, rtrim, J, y_off, u_off, cplx) each (the
+    reference's segment jit key; here part of a segment graph's key)."""
     sched = ts.sched
-    B, UPD, Y = init_lsum_buffers(ts, b)
+    return tuple(
+        (sched.groups[i].wb, sched.groups[i].mb, ts.groups[i].trim,
+         ts.groups[i].rtrim, ts.groups[i].J, ts.groups[i].y_off,
+         ts.groups[i].u_off, cplx)
+        for i in members)
+
+
+def _staged_fwd_segment(ts, packs, idxs, members, bufs: SolveBuffers,
+                        trans: bool) -> None:
+    """One forward segment: its members' forward steps in order, UPD
+    and Y updated in place."""
+    state = (bufs.B, bufs.UPD, bufs.Y)
+    for i in members:
+        _fwd_member(state, ts.sched.groups[i], ts.groups[i], packs[i],
+                    idxs[i], trans)
+
+
+def _staged_bwd_segment(ts, packs, idxs, members, bufs: SolveBuffers,
+                        trans: bool) -> None:
+    """One backward segment: its members' backward steps in reverse
+    order, XF updated in place."""
+    for i in reversed(members):
+        _bwd_member(bufs.XF, bufs.Y, ts.sched.groups[i], ts.groups[i],
+                    packs[i], idxs[i], trans)
+
+
+def _final_gather(bufs: SolveBuffers, fin: torch.Tensor) -> None:
+    torch.index_select(bufs.XF, 0, fin, out=bufs.X)
+
+
+def _run_solve(lu, b: torch.Tensor, trans: bool, eager: bool,
+               programs) -> torch.Tensor:
+    """Solve with b (n, nrhs, in the solve dtype) through the programs
+    that `programs(ts, packs, idxs, fin)` lists — [(key, body(bufs))],
+    in order: eagerly on fresh buffers on the CPU or when `eager`, else
+    as the handle's graphs for (nrhs, trans, rhs dtype), captured at
+    first use.  Returns the solution, the caller's own."""
+    ts = get_trisolve(lu.schedule)
+    packs = get_packs(lu)
+    device = lu.device
+    idxs, fin = ts.dev(device)       # uploaded before any capture
+    progs = programs(ts, packs, idxs, fin)
     R = b.shape[-1]
-    device = b.device
-    idxs, fin = ts.dev(device)
-    state = (B, UPD, Y)
-    for g, gs, pack, idx in zip(sched.groups, ts.groups, packs, idxs):
-        state = _fwd_member(state, g, gs, pack, idx, trans)
-    _, _, Y = state
-    XF = torch.zeros((ts.y_total + 1, R), dtype=b.dtype, device=device)
-    for g, gs, pack, idx in zip(reversed(sched.groups),
-                                reversed(ts.groups), reversed(packs),
-                                reversed(idxs)):
-        XF = _bwd_member(XF, Y, g, gs, pack, idx, trans)
-    return XF[fin]
+    if eager or not graphs.on_card(device):
+        bufs = SolveBuffers(ts, R, b.dtype, device)
+        bufs.load(b)
+        for _, body in progs:
+            body(bufs)
+        return bufs.X
+    gset = graphs.graph_set(
+        lu, (R, bool(trans), str(b.dtype), _limits_key()), device,
+        lambda: SolveBuffers(ts, R, b.dtype, device))
+    bufs = gset.static
+    with gset.lock:
+        bufs.load(b)
+        for key, body in progs:
+            gset.run(key, lambda body=body: body(bufs))
+        return bufs.X.clone()
+
+
+def staged_sweeps(lu, b: torch.Tensor, trans: bool,
+                  eager: bool = False) -> torch.Tensor:
+    """The staged solve of a StagedLU: one program per merged forward
+    segment, one per backward segment (in reverse), and the final
+    gather.  b (n, nrhs) in factor ordering and the solve dtype."""
+    def programs(ts, packs, idxs, fin):
+        fwd = [(("fwd", tuple(seg), seg_metas(ts, seg)),
+                partial(_staged_fwd_segment, ts, packs, idxs, seg,
+                        trans=trans))
+               for seg in ts.segments]
+        bwd = [(("bwd", tuple(seg), seg_metas(ts, seg[::-1])),
+                partial(_staged_bwd_segment, ts, packs, idxs, seg,
+                        trans=trans))
+               for seg in reversed(ts.segments)]
+        return fwd + bwd + [(("gather",), partial(_final_gather, fin=fin))]
+    return _run_solve(lu, b, trans, eager, programs)
+
+
+def sweep(ts: TrisolveSchedule, packs, idxs, fin, trans: bool,
+          bufs: SolveBuffers) -> None:
+    """The whole merged triangular solve on the buffers: every forward
+    step, every backward step, the final gather into bufs.X."""
+    every = list(range(len(ts.groups)))
+    _staged_fwd_segment(ts, packs, idxs, every, bufs, trans)
+    _staged_bwd_segment(ts, packs, idxs, every, bufs, trans)
+    _final_gather(bufs, fin)
+
+
+def _solve_packed_fn(trans: bool):
+    """The packed solve's program list for `_run_solve`: the whole
+    sweep as one program.  The reference caches its jitted program per
+    (schedule, dtype); here the program's graphs read one handle's
+    panels, so `_run_solve` keeps them on the handle per (nrhs, trans,
+    rhs dtype)."""
+    return lambda *ctx: [(("packed",), partial(sweep, *ctx, trans))]
+
+
+def solve_packed(lu, b: torch.Tensor, trans: bool,
+                 eager: bool = False) -> torch.Tensor:
+    """The packed solve of a DeviceLU (or any handle): the whole sweep
+    as one program over the handle's packed panels.  b (n, nrhs) in
+    factor ordering and the solve dtype."""
+    return _run_solve(lu, b, trans, eager, _solve_packed_fn(trans))

@@ -3,9 +3,11 @@
     python -m superlu_dist_tpu_torch.profile [--k 48] [--dtype float64]
 
 Runs gssvx on laplacian_3d(k) once to warm up (kernel builds, the host
-library, caches), then once more under torch.profiler with CPU and
-CUDA activities, then once more unprofiled for the phase walls (under
-cProfile with --host).  Prints one JSON object: the card, the phase walls of
+library, caches, the captured CUDA graphs of the factor and solve
+programs), then refactors the same values on the same plan
+(Fact.SAME_PATTERN_SAME_ROWPERM, which replays those graphs) once more
+under torch.profiler with CPU and CUDA activities, then once more
+unprofiled for the phase walls (under cProfile with --host).  Prints one JSON object: the card, the phase walls of
 the unprofiled run (host clock; the numeric phases end in a device
 synchronisation), the device-busy time of the profiled run (sum of
 kernel times, one stream), two idle shares — of the profiled window,
@@ -147,14 +149,16 @@ def main(argv=None) -> int:
     a = testmat.laplacian_3d(args.k)
     xtrue = np.random.default_rng(0).standard_normal(a.n)
     b = a.to_scipy() @ xtrue
-    opts = st.Options(factor_dtype=args.dtype)
-    st.gssvx(opts, a, b)                       # warm-up
+    _, lu0, _ = st.gssvx(st.Options(factor_dtype=args.dtype), a,
+                         b)                    # warm-up, captures
+    opts = st.Options(factor_dtype=args.dtype,
+                      fact=st.Fact.SAME_PATTERN_SAME_ROWPERM)
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        x, lu, stats = st.gssvx(opts, a, b)
+        x, lu, stats = st.gssvx(opts, a, b, lu=lu0)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # a second, unprofiled run for the phase walls without tracing
@@ -168,7 +172,7 @@ def main(argv=None) -> int:
         pr = cProfile.Profile()
         pr.enable()
     lsum.lsum_panel.launches = 0
-    _, _, stats2 = st.gssvx(opts, a, b)
+    _, _, stats2 = st.gssvx(opts, a, b, lu=lu0)
     lsum_calls = lsum.lsum_panel.launches
     if args.host:
         pr.disable()

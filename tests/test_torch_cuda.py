@@ -245,3 +245,252 @@ def test_gssvx_on_card_launches_every_kernel(card):
     assert all(f.launches > 0 for f in wrappers)
     assert stats.berr <= 64 * np.finfo(np.float64).eps
     assert np.linalg.norm(x - xtrue) / np.linalg.norm(xtrue) < 1e-12
+
+
+# --------------------------------------------------------------------
+# the compiled-program layer: factor and solve programs as CUDA graphs
+# (ops/graphs.py), held against the same bodies run eagerly
+# --------------------------------------------------------------------
+
+def _k2_graph_case(card, grp, b, upd, F0):
+    from superlu_dist_tpu_torch.ops import ea_scatter
+    F1, F2 = F0.clone(), F0.clone()
+    ea_scatter.ea_scatter_add(F1, upd, b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ea_scatter.ea_scatter_add(F2, upd, b)
+    F2.copy_(F0)
+    graph.replay()
+    torch.cuda.synchronize()
+    return F1, F2
+
+
+@pytest.mark.parametrize("name", [("laplacian_3d", 12),
+                                  ("convection_diffusion_2d", 40)])
+def test_ea_scatter_kernel_in_cuda_graph(card, name):
+    """K2 captured in a CUDA graph, narrow (per-destination lists) and
+    wide (banded) buckets: a replay on fresh fronts equals an eager
+    call bit for bit."""
+    sched, buckets = _buckets(card, name)
+    g0 = torch.Generator(device=card).manual_seed(5)
+    upd = torch.randn(sched.upd_total + sched.upd_pad,
+                      dtype=torch.float64, device=card, generator=g0)
+    wide = set()
+    for grp, b in buckets:
+        F0 = torch.randn(grp.n_loc, grp.mb, grp.mb, dtype=torch.float64,
+                         device=card, generator=g0)
+        F1, F2 = _k2_graph_case(card, grp, b, upd, F0)
+        assert torch.equal(F1, F2), (grp.mb, b.rc_b)
+        wide.add(b.rc_b > 32)
+    assert wide == {False, True}
+
+
+@pytest.mark.parametrize("R", [1, 64])
+@pytest.mark.parametrize("t,wb,mb,rtrim", [(2, 512, 1600, 1000),
+                                           (300, 24, 90, 60),
+                                           (7, 32, 160, 120)])
+def test_lsum_kernel_in_cuda_graph(card, t, wb, mb, rtrim, R):
+    """K3 captured in a CUDA graph: the wide fronts' cluster depth split
+    (t 2, wb 512), the fused narrow launch and the tile products; a
+    replay on a fresh right-hand side equals an eager call bit for
+    bit."""
+    from superlu_dist_tpu_torch.ops import lsum
+    g = torch.Generator(device=card).manual_seed(t + wb + R)
+    Lp = torch.randn(t, mb, wb, dtype=torch.float64, device=card,
+                     generator=g) / wb
+    Li = torch.randn(t, wb, wb, dtype=torch.float64, device=card,
+                     generator=g) / wb
+    x0 = torch.randn(t, wb, R, dtype=torch.float64, device=card,
+                     generator=g)
+    bufs = [(torch.zeros(5 + t * wb, R, dtype=torch.float64, device=card),
+             torch.zeros(9 + t * rtrim, R, dtype=torch.float64,
+                         device=card)) for _ in range(2)]
+    xb = torch.zeros_like(x0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        lsum.lsum_panel(Li, Lp[:, wb:], xb, *bufs[1], 4, 8, rtrim)
+    xb.copy_(x0)
+    graph.replay()
+    lsum.lsum_panel(Li, Lp[:, wb:], x0, *bufs[0], 4, 8, rtrim)
+    torch.cuda.synchronize()
+    assert torch.equal(bufs[0][0], bufs[1][0])
+    assert torch.equal(bufs[0][1], bufs[1][1])
+
+
+def _plan(card, k=12):
+    """A laplacian_3d(k) plan on the card and its scaled values."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
+    a = laplacian_3d(k)
+    plan = st.plan_factorization(a, device=card)
+    return a, plan, plan.scaled_values(a)
+
+
+def _arm(monkeypatch, staged):
+    monkeypatch.setenv("SLU_STAGED", "1" if staged else "0")
+
+
+def _flats_equal(x, y):
+    return all(torch.equal(a, b) for a, b in zip(x.flats(), y.flats()))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("staged", [True, False])
+def test_graph_factor_and_solve_equal_eager(card, monkeypatch, staged,
+                                            dtype):
+    """Both arms, both dtypes: the first factorization captures, the
+    second only replays, and both give the eager loop's slabs, tiny
+    counts and solutions (NOTRANS and TRANS, nrhs 1 and 5) bit for
+    bit."""
+    from superlu_dist_tpu_torch.ops import batched, graphs
+    _arm(monkeypatch, staged)
+    _, plan, vals = _plan(card)
+    sched = batched.get_schedule(plan)
+    ref = batched.factorize_device(plan, vals, dtype, card, eager=True)
+    lu1 = batched.factorize_device(plan, vals, dtype, card)
+    n_graphs = graphs.graph_count(sched)
+    nseg = (len(batched.get_factor_segments(sched)) if staged else 1)
+    assert n_graphs == nseg
+    lu2 = batched.factorize_device(plan, vals, dtype, card)
+    assert graphs.graph_count(sched) == n_graphs       # replay only
+    assert isinstance(lu1, batched.StagedLU if staged
+                      else batched.DeviceLU)
+    assert _flats_equal(lu1, ref) and _flats_equal(lu2, ref)
+    assert lu1.tiny_pivots == lu2.tiny_pivots == ref.tiny_pivots
+    rng = np.random.default_rng(1)
+    for R in (1, 5):
+        b = rng.standard_normal((plan.n, R))
+        for solve in (batched.solve_device, batched.solve_device_trans):
+            x_ref = solve(ref, b, eager=True)
+            assert np.array_equal(solve(lu1, b), x_ref)
+            assert np.array_equal(solve(lu1, b), x_ref)     # replay
+            assert np.array_equal(solve(lu2, b), x_ref)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_held_factorization_is_never_overwritten(card, monkeypatch,
+                                                 staged):
+    """Factor A1, then A2 on the same plan (new values, the
+    SAME_PATTERN_SAME_ROWPERM rung), then solve with the first handle:
+    it still holds A1's factors and gives A1's solution."""
+    from superlu_dist_tpu_torch.ops import batched
+    _arm(monkeypatch, staged)
+    _, plan, v1 = _plan(card)
+    v2 = v1 * (1.0 + 0.5 * np.random.default_rng(2).random(len(v1)))
+    lu1 = batched.factorize_device(plan, v1, np.float64, card)
+    snap = [f.clone() for f in lu1.flats()]
+    b = np.random.default_rng(3).standard_normal((plan.n, 2))
+    x1 = batched.solve_device(lu1, b)
+    lu2 = batched.factorize_device(plan, v2, np.float64, card)
+    x2 = batched.solve_device(lu2, b)
+    assert all(torch.equal(a, s) for a, s in zip(lu1.flats(), snap))
+    assert np.array_equal(batched.solve_device(lu1, b), x1)
+    ref1 = batched.factorize_device(plan, v1, np.float64, card,
+                                    eager=True)
+    assert np.array_equal(x1, batched.solve_device(ref1, b, eager=True))
+    assert not np.allclose(x1, x2)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_one_capture_serves_two_thresholds(card, monkeypatch, staged):
+    """K1 reads the GESP threshold on the device: one capture serves a
+    second value set whose threshold differs (‖A‖ 1e9 times larger, so
+    that pivots get replaced), with tiny counts and slabs equal to the
+    eager loop's at each threshold."""
+    from superlu_dist_tpu_torch.ops import batched, graphs
+    _arm(monkeypatch, staged)
+    _, plan, vals = _plan(card)
+    sched = batched.get_schedule(plan)
+    counts = []
+    for anorm in (plan.anorm, plan.anorm * 1e9):
+        plan.anorm = anorm
+        lu = batched.factorize_device(plan, vals, np.float64, card)
+        ref = batched.factorize_device(plan, vals, np.float64, card,
+                                       eager=True)
+        assert lu.tiny_pivots == ref.tiny_pivots
+        assert _flats_equal(lu, ref)
+        counts.append(lu.tiny_pivots)
+    assert counts[0] == 0 < counts[1]
+    assert graphs.graph_count(sched) == (
+        len(batched.get_factor_segments(sched)) if staged else 1)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_zero_pivot_raises_after_replay(card, monkeypatch, staged):
+    """replace_tiny_pivot=NO with an exactly singular leading block
+    raises ZeroDivisionError on the capturing run and on a replay."""
+    import scipy.sparse as sp
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched, graphs
+    from superlu_dist_tpu_torch.options import RowPerm, YesNo
+    _arm(monkeypatch, staged)
+    A = st.csr_from_scipy(sp.csr_matrix(np.array([[1.0, 1.0, 0.0],
+                                                  [1.0, 1.0, 0.0],
+                                                  [0.0, 0.0, 1.0]])))
+    opts = st.Options(replace_tiny_pivot=YesNo.NO, equil=YesNo.NO,
+                      row_perm=RowPerm.NOROWPERM)
+    plan = st.plan_factorization(A, opts, device=card)
+    vals = plan.scaled_values(A)
+    for _ in range(2):
+        with pytest.raises(ZeroDivisionError):
+            batched.factorize_device(plan, vals, np.float64, card)
+    assert graphs.graph_count(batched.get_schedule(plan)) >= 1
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_launch_counters_count_replays(card, monkeypatch, staged):
+    """A capture records launches without counting them; every replay
+    adds them: a capturing run, a replaying run and the eager loop count
+    the same launches, factor and solve."""
+    from superlu_dist_tpu_torch.ops import batched, graphs
+    _arm(monkeypatch, staged)
+    _, plan, vals = _plan(card)
+    b = np.random.default_rng(4).standard_normal(plan.n)
+    seen = []
+    for eager in (False, False, True):
+        for f in graphs.COUNTED:
+            f.launches = 0
+        lu = batched.factorize_device(plan, vals, np.float64, card,
+                                      eager=eager)
+        batched.solve_device(lu, b, eager=eager)
+        seen.append(tuple(f.launches for f in graphs.COUNTED))
+    assert seen[0] == seen[1] == seen[2]
+    assert all(c > 0 for c in seen[0])
+
+
+def test_warmup_captures_every_segment_ahead(card, monkeypatch):
+    """warmup_staged captures each factor segment graph before any
+    values exist; gssvx then only replays, through every kernel, and a
+    SAME_PATTERN_SAME_ROWPERM refactorization captures nothing new."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched, graphs
+    from superlu_dist_tpu_torch.utils.warmup import warmup_staged
+    _arm(monkeypatch, True)
+    a, plan, _ = _plan(card)
+    rep = warmup_staged(plan, "float64")
+    sched = batched.get_schedule(plan)
+    assert rep["captured"] == rep["factor_programs"] == len(
+        batched.get_factor_segments(sched))
+    n0 = graphs.graph_count(sched)
+    xtrue = np.random.default_rng(0).standard_normal(a.n)
+    b = a.to_scipy() @ xtrue
+    lu = st.factorize(a, plan=plan)
+    assert graphs.graph_count(sched) == n0
+    st.warm_solve(lu, (1,))
+    x, lu2, stats = st.gssvx(
+        st.Options(fact=st.Fact.SAME_PATTERN_SAME_ROWPERM), a, b, lu=lu)
+    assert graphs.graph_count(sched) == n0
+    assert stats.berr <= 64 * np.finfo(np.float64).eps
+    assert np.linalg.norm(x - xtrue) / np.linalg.norm(xtrue) < 1e-12
+    assert np.array_equal(st.get_diag_u(lu2), st.get_diag_u(lu))
+
+
+def test_failed_capture_raises(card):
+    """A body that syncs with the host cannot be captured: the capture
+    raises, with no eager fallback, and keeps no graph."""
+    from superlu_dist_tpu_torch.ops import graphs
+    gset = graphs.GraphSet(card)
+    x = torch.ones(4, dtype=torch.float64, device=card)
+    with pytest.raises(RuntimeError):
+        gset.run("sync", lambda: float(x.sum()))
+    assert not gset.graphs
