@@ -36,9 +36,24 @@ Phases, each of which raises (non-zero exit) on failure:
   5. mixed     — the same matrix refactored in float32 (solve_dtype
                  float32, float64 refinement), converging without
                  escalation;
-  6. unsym     — convection_diffusion_2d(200) in float64 (59 groups: the
+  6. fused     — refinement on the device: make_fused_solver on
+                 laplacian_3d(48) with a float32 factor and float64
+                 refinement (bench.py's configuration, the staged arm),
+                 on the same matrix in float64, and (after phase 7's
+                 drive) on convection_diffusion_2d(200) in float64 (the
+                 whole-phase arm), vals and b already on the card, at
+                 nrhs 1 and 64: the first (capturing) call and the median
+                 of three later ones as host walls, the graphs each call
+                 captured (0 after the first), steps, berr ≤ 64·eps(f64),
+                 the K1–K3 launches of each call (each > 0), resident and
+                 peak device memory, and in the same turns gssvx
+                 refactoring the same values with its host refinement
+                 (its REFINE wall); one ELL residual matvec of
+                 laplacian_3d(48) at nrhs 1 and 64 against its bound and
+                 a torch.sparse CSR product;
+  7. unsym     — convection_diffusion_2d(200) in float64 (59 groups: the
                  whole-phase arm, one graph for the factor sweep);
-  7. graphs    — the compiled-program layer (ops/graphs.py) on both
+  8. graphs    — the compiled-program layer (ops/graphs.py) on both
                  arms: laplacian_3d(48) float64 (staged, one graph per
                  merged segment) and convection_diffusion_2d(200)
                  (whole phase).  The first, capturing factorization;
@@ -50,7 +65,7 @@ Phases, each of which raises (non-zero exit) on failure:
                  device busy and idle share of a replayed factorization
                  and solve under torch.profiler; peak device memory,
                  eager against graphs; graphs and segments;
-  8. the kernels line, the card line, and the contract line last.
+  9. the kernels line, the card line, and the contract line last.
 Everything is made from fixed seeds.  Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -253,7 +268,7 @@ def _busy(fn):
 
 def graph_phase(label, a, rounds=3):
     """The compiled-program layer on one matrix (see the module
-    docstring, phase 7); raises when a replay differs from the eager
+    docstring, phase 8); raises when a replay differs from the eager
     loop beyond bitwise equality of the slabs or TOL of a solution."""
     import numpy as np
     import torch
@@ -366,6 +381,154 @@ def graph_phase(label, a, rounds=3):
                        for k, (b, w) in busy.items()},
     }
     log(f"[graphs {label}] " + json.dumps(rec))
+    return rec
+
+
+# --------------------------------------------------------------------
+# refinement on the device: the fused solver and its residual SpMV
+# --------------------------------------------------------------------
+
+def spmv_timing(a, dev):
+    """One ELL `matvec` of `a` (float64) at nrhs 1 and 64, device time
+    against its bound and against `torch.sparse` CSR products (the
+    library reference, eager: cuSPARSE is not captured)."""
+    import numpy as np
+    import torch
+    from superlu_dist_tpu_torch.ops.spmv import DeviceSpMV
+    m = DeviceSpMV.build(a, device=dev)
+    if m.layout != "ell":
+        raise RuntimeError(f"auto layout of the residual SpMV is {m.layout}")
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(np.int64)),
+        torch.from_numpy(a.indices.astype(np.int64)),
+        torch.from_numpy(a.data), size=(a.n, a.n)).to(dev)
+    n, w = m.ell_cols.shape
+    out = {"n": n, "band": w, "nnz": int(a.nnz),
+           "pad_share": 1 - a.nnz / (n * w)}
+    for R in (1, 64):
+        x = torch.from_numpy(np.random.default_rng(R).standard_normal(
+            (n, R))).to(dev)
+        xv = x[:, 0].contiguous() if R == 1 else x
+        y = m.matvec(xv)
+        y_lib = csr @ xv
+        torch.cuda.synchronize()
+        _, rel = rel_err(y, y_lib)
+        if not rel <= TOL["float64"]:
+            raise RuntimeError(f"ELL matvec nrhs {R} rel err {rel:.3e}")
+        tm = time_turns({"ell": lambda: m.matvec(xv),
+                         "library": lambda: csr @ xv}, eager=("library",))
+        # each input read once (column and value planes, x), y written
+        nbytes = 2 * n * w * 8 + 2 * n * R * 8
+        b_ms, b_by = bound_ms(2.0 * a.nnz * R, nbytes, "float64")
+        out[f"nrhs{R}"] = {"ms": tm["ell"], "library_ms": tm["library"],
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "rel_err": rel}
+    log("[spmv] " + json.dumps(out))
+    return out
+
+
+def _launches():
+    return {k: f.launches for k, f in counters().items()}
+
+
+def _zero_launches():
+    for f in counters().values():
+        f.launches = 0
+
+
+def fused_phase(label, a, plan, dtype, rounds=3):
+    """make_fused_solver on `plan` with a `dtype` factor and float64
+    refinement, vals and b already on the card, at nrhs 1 and 64: the
+    first call (captures) and the median of `rounds` later calls as
+    host walls, the graphs each call captured (0 after the first),
+    steps, berr, relerr and the K1–K3 launches of each call (counts set
+    to 0 just before it, each > 0); resident and peak device memory;
+    and, in the same turns, gssvx refactoring the same values on the
+    same plan with its host refinement (SAME_PATTERN_SAME_ROWPERM)."""
+    import numpy as np
+    import torch
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched
+    step = batched.make_fused_solver(plan, dtype)
+    ctx = step.context
+    dev = ctx.device
+    vals = torch.from_numpy(a.data).to(dev)
+    opts = st.Options(fact=st.Fact.SAME_PATTERN_SAME_ROWPERM,
+                      factor_dtype=dtype, solve_dtype=dtype)
+    lu = st.factorize(a, opts, plan=plan)
+    rec = {"label": label, "factor_dtype": dtype, "n": int(a.n),
+           "arm": "staged" if ctx.staged else "whole phase",
+           "residual_mode": step.residual_mode,
+           "spmv_layout": step.spmv_layout, "nrhs": {}}
+
+    def call(b):
+        g0 = ctx.graph_count()
+        _zero_launches()
+        wall, out = _synced(lambda: step(vals, b))
+        return wall, out, ctx.graph_count() - g0, _launches()
+
+    def check(out, launches, xtrue, what):
+        x, berr = out[0], float(out[1])
+        if x.shape != xtrue.shape or not bool(torch.isfinite(x).all()):
+            raise RuntimeError(f"{label} {what}: bad solution")
+        if not berr <= BERR_MAX:
+            raise RuntimeError(f"{label} {what}: berr {berr} > {BERR_MAX}")
+        if int(out[4]) != 0:
+            raise RuntimeError(f"{label} {what}: zero pivots")
+        for k, v in launches.items():
+            if v <= 0:
+                raise RuntimeError(f"{label} {what}: kernel {k} was never "
+                                   "launched")
+        return float((x - xtrue).abs().max() / xtrue.abs().max())
+
+    for R in (1, 64):
+        xtrue_np = np.random.default_rng(20 + R).standard_normal((a.n, R))
+        b_np = a.to_scipy() @ xtrue_np
+        b = torch.from_numpy(b_np).to(dev)
+        xtrue = torch.from_numpy(xtrue_np).to(dev)
+        torch.cuda.synchronize()
+        m0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        first_s, out, captured, launches = call(b)
+        mem = {"peak_bytes": torch.cuda.max_memory_allocated() - m0,
+               "resident_bytes": torch.cuda.memory_allocated() - m0,
+               "reserved_bytes": torch.cuda.memory_reserved() - r0}
+        relerr = check(out, launches, xtrue, "first call")
+        r = {"first_s": first_s, "first_captured": captured,
+             "first_launches": launches, "memory": mem}
+        fused, host, later = [], [], []
+        for k in range(rounds):
+            for kind in (("fused", "gssvx") if k % 2 == 0
+                         else ("gssvx", "fused")):
+                if kind == "fused":
+                    w, out, captured, launches = call(b)
+                    if captured:
+                        raise RuntimeError(f"{label}: a later call captured "
+                                           f"{captured} graphs")
+                    relerr = check(out, launches, xtrue, "later call")
+                    fused.append(w)
+                    later.append({"steps": int(out[2]),
+                                  "berr": float(out[1]),
+                                  "launches": launches})
+                else:
+                    w, (_, _, stats) = _synced(lambda: st.gssvx(
+                        opts, a, b_np, lu=lu, stats=st.Stats()))
+                    u = stats.utime
+                    host.append({"wall_s": w, "factor_s": u["FACT"],
+                                 "solve_s": u["SOLVE"],
+                                 "refine_s": u["REFINE"],
+                                 "refine_steps": stats.refine_steps,
+                                 "berr": float(stats.berr)})
+        r.update({
+            "later_s": statistics.median(fused), "later_s_all": fused,
+            "later": later, "relerr": relerr,
+            "gssvx_wall_s": statistics.median(h["wall_s"] for h in host),
+            "gssvx_refine_s": statistics.median(h["refine_s"]
+                                                for h in host),
+            "gssvx": host})
+        rec["nrhs"][R] = r
+    rec["graphs"] = ctx.graph_count()
+    log(f"[fused {label}] " + json.dumps(rec))
     return rec
 
 
@@ -802,11 +965,22 @@ def main(argv=None) -> int:
     if rec32["escalations"]:
         raise RuntimeError("mixed-precision run escalated")
     report["mixed"] = rec32
+    # refinement on the device: the fused solver, bench.py's
+    # configuration first (float32 factor, float64 refinement)
+    report["fused"] = [
+        fused_phase("f32 factor + f64 refine laplacian_3d(48)", a48,
+                    lu48.plan, "float32"),
+        fused_phase("f64 laplacian_3d(48)", a48, lu48.plan, "float64")]
+    report["spmv"] = spmv_timing(a48, torch.device("cuda"))
     del lu48
     torch.cuda.empty_cache()
     acd = testmat.convection_diffusion_2d(200)
-    _, recu = drive("f64 convection_diffusion_2d(200)", st.Options(), acd)
+    lucd, recu = drive("f64 convection_diffusion_2d(200)", st.Options(),
+                       acd)
     report["unsym"] = recu
+    report["fused"].append(fused_phase(
+        "f64 convection_diffusion_2d(200)", acd, lucd.plan, "float64"))
+    del lucd
 
     # the compiled-program layer, both arms
     report["graphs"] = [graph_phase("staged laplacian_3d(48)", a48),
@@ -817,7 +991,7 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
-    # 8. the summary lines, the contract line last
+    # 9. the summary lines, the contract line last
     log(json.dumps(kernels_line(res, rec["launches"])))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

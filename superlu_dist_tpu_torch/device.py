@@ -19,7 +19,10 @@ class NoCudaDeviceError(RuntimeError):
 def resolve_device(device=None) -> torch.device:
     """`None` -> the current CUDA device (raises NoCudaDeviceError when
     there is none); anything else is taken as the caller's explicit
-    choice."""
+    choice.  A CUDA device always comes back with its index ("cuda" ->
+    "cuda:<current>"): the device caches (a schedule's index sets, the
+    graph sets) are keyed by the device's name, and one card must have
+    one name."""
     if device is None:
         if not torch.cuda.is_available():
             raise NoCudaDeviceError(
@@ -27,9 +30,12 @@ def resolve_device(device=None) -> torch.device:
                 "the plain PyTorch versions on the host explicitly")
         return torch.device("cuda", torch.cuda.current_device())
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise NoCudaDeviceError(f"device {device!r} requested but CUDA "
-                                "is not available")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise NoCudaDeviceError(f"device {device!r} requested but "
+                                    "CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

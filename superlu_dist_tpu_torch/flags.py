@@ -27,6 +27,9 @@ FLAGS: dict[str, str] = {
     "SLU_FACTOR_SEG_CELLS": "front-cell budget of one merged factor segment (default 1048576)",
     "SLU_TRISOLVE_MERGE_CELLS": "panel cells (trim*mb*wb) at or below which a solve group joins a merged segment (default 65536)",
     "SLU_TRISOLVE_SEG_CELLS": "panel-cell budget of one merged solve segment (default 1048576)",
+    # --- residual SpMV layout (ops/spmv.py) ---
+    "SLU_SPMV_LAYOUT": "auto|ell|coo residual SpMV layout (ell = scatter-free padded rows)",
+    "SLU_SPMV_ELL_WASTE": "max ELL padding ratio over true nnz before falling back to COO (default 4)",
 }
 
 EXTERNAL_PREFIXES: tuple = ("SUPERLU_",)
@@ -54,3 +57,9 @@ def env_int(name: str, default: int) -> int:
     """Int-valued documented flag; empty/unset -> default."""
     v = os.environ.get(_known(name))
     return int(v) if v else default
+
+
+def env_float(name: str, default: float) -> float:
+    """Float-valued documented flag; empty/unset -> default."""
+    v = os.environ.get(_known(name))
+    return float(v) if v else default

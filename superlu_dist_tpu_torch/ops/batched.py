@@ -33,6 +33,7 @@ of one static tensor is the PyTorch form of that.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from functools import partial
 from typing import List, Optional
 
@@ -40,13 +41,17 @@ import numpy as np
 import torch
 
 from .. import flags
-from ..device import torch_dtype, upload_int64
+from ..device import resolve_device, torch_dtype, upload_int64
 from ..plan.plan import FactorPlan
 from . import graphs
 from .dense_lu import unit_lower_inverse, upper_inverse
 from .ea_scatter import (NARROW, EaBucket, destination_lists,
                          ea_scatter_add)
 from .panel_lu import launch_plan, partial_lu_batch
+
+
+_COMPLEX_TODO = ("complex systems are not ported yet (ROADMAP queue 1 "
+                 "item 10, complex and pair lanes)")
 
 
 def _next_bucket(x: int) -> int:
@@ -636,10 +641,14 @@ class FactorBuffers:
             sched.L_total, sched.U_total, sched.Li_total, sched.Ui_total))
         self.views = _group_views(sched, self.flats)
 
-    def load(self, vals: np.ndarray, thresh: float) -> None:
-        """Fill the inputs of one factorization and clear the rest."""
-        v = torch.from_numpy(np.ascontiguousarray(vals))
-        self.vals_ext[:-1].copy_(v)
+    def load(self, vals, thresh: float) -> None:
+        """Fill the inputs of one factorization and clear the rest.
+        `vals` (the scaled values in plan COO order) is numpy or a
+        tensor, on the host or already on the device; it is cast to the
+        factor dtype on the way in."""
+        if not isinstance(vals, torch.Tensor):
+            vals = torch.from_numpy(np.ascontiguousarray(vals))
+        self.vals_ext[:-1].copy_(vals)
         self.thresh.fill_(thresh)
         self.counts.zero_()
         self.upd.zero_()
@@ -796,6 +805,18 @@ def _factor_programs(sched, dtype, staged: bool, buf: FactorBuffers):
             for seg in get_factor_segments(sched)]
 
 
+def _factor_sweep(sched, dtype, staged: bool, buf: FactorBuffers,
+                  gset=None) -> None:
+    """One factor sweep on the loaded `buf`: as the graphs of `gset`
+    (whose lock the caller holds; `buf` is its static set), or eagerly
+    when there is none."""
+    for key, body in _factor_programs(sched, dtype, staged, buf):
+        if gset is None:
+            body()
+        else:
+            gset.run(key, body)
+
+
 def _staged_factor_run(sched, vals, thresh: float, dtype, device,
                        staged: bool = True, eager: bool = False):
     """One factor sweep by the staged or the whole-phase arm.  Returns
@@ -805,15 +826,13 @@ def _staged_factor_run(sched, vals, thresh: float, dtype, device,
     if eager or not graphs.on_card(device):
         buf = FactorBuffers(sched, len(vals), dtype, device)
         buf.load(vals, thresh)
-        for _, body in _factor_programs(sched, dtype, staged, buf):
-            body()
+        _factor_sweep(sched, dtype, staged, buf)
         return buf.flats, buf.counts
     gset = _factor_graphs(sched, len(vals), dtype, device, staged)
     buf = gset.static
     with gset.lock:
         buf.load(vals, thresh)
-        for key, body in _factor_programs(sched, dtype, staged, buf):
-            gset.run(key, body)
+        _factor_sweep(sched, dtype, staged, buf, gset)
         counts = buf.counts.clone()
         # a replay writes the same addresses every time: the handle
         # takes its own copy of the slabs
@@ -916,13 +935,9 @@ def factorize_device(plan: FactorPlan, scaled_vals: np.ndarray,
     reference's info=i signal)."""
     dtype = np.dtype(dtype)
     if dtype.kind == "c":
-        raise NotImplementedError(
-            "complex factorization is not ported yet (ROADMAP queue 1 "
-            "item 10, complex and pair lanes)")
+        raise NotImplementedError(_COMPLEX_TODO)
     sched = get_schedule(plan)
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    device = resolve_device(device)
     vals = np.asarray(scaled_vals).astype(dtype)
     thresh = _thresh_for(plan, dtype)
     # every index set is on the device before any capture
@@ -962,9 +977,7 @@ def _solve_device_common(lu, b: np.ndarray, trans: bool,
     # factors solves in float64 (the sweep reads the float32 panels)
     xdt = np.promote_types(lu.dtype, bb.dtype)
     if xdt.kind == "c":
-        raise NotImplementedError(
-            "complex right-hand sides are not ported yet (ROADMAP "
-            "queue 1 item 10, complex and pair lanes)")
+        raise NotImplementedError(_COMPLEX_TODO)
     bt = torch.from_numpy(np.ascontiguousarray(bb.astype(xdt)))
     if isinstance(lu, StagedLU):
         X = trisolve.staged_sweeps(lu, bt, trans, eager=eager)
@@ -984,3 +997,436 @@ def solve_device_trans(lu, b: np.ndarray,
     """Solve Mᵀ·x = b (factor ordering): forward with Uᵀ, backward
     with Lᵀ over the same group schedule."""
     return _solve_device_common(lu, b, trans=True, eager=eager)
+
+
+# --------------------------------------------------------------------
+# the fused solver: factor, solve and refinement on the device
+# --------------------------------------------------------------------
+#
+# The reference traces the whole numeric pipeline into one XLA program
+# (`make_fused_step`), and with refinement (`make_fused_solver`) runs
+# its loop as a `while_loop` whose stop the data decides.  A CUDA graph
+# has no data-dependent loop, so here each iteration is the context's
+# solve programs and one small update program, each a graph on the
+# card, and the host reads one pinned pair (stop flag, berr) after the
+# update: the host loop the reference's staged arm runs, with the same
+# decisions.
+
+_DF64_TODO = ("double-word (df64) refinement is not ported yet "
+              "(ROADMAP queue 1 item 11, precision)")
+
+
+class FusedContext:
+    """What the fused steps of one (schedule, factor dtype, arm) share
+    on one device.
+
+    * The factor sweep's buffers: on the card the static FactorBuffers
+      of the factor graph set that `factorize` replays too (one capture
+      serves both), with its lock.
+    * A handle (StagedLU on the staged arm, DeviceLU on the whole-phase
+      arm) whose panels are views of those static slabs, not a copy,
+      and which is never handed out.
+    * That handle's solve programs per (nrhs, solve dtype), and the
+      refinement programs of the steps (`refinement`).
+
+    A call holds `lock` from loading the values to copying out its
+    results: a factorization held elsewhere owns a copy of the slabs
+    and is never touched, and no two calls share the buffers at once.
+    On the CPU, or with `eager`, the same bodies run eagerly on buffers
+    of the context's own."""
+
+    def __init__(self, plan: FactorPlan, dtype, device, staged: bool,
+                 eager: bool):
+        sched = get_schedule(plan)
+        sched.to_device(device)          # before any capture
+        self.plan, self.sched = plan, sched
+        self.dtype = np.dtype(dtype)
+        self.device = torch.device(device)
+        self.staged = bool(staged)
+        self.eager = eager or not graphs.on_card(device)
+        nnz = len(plan.coo_rows)
+        if self.eager:
+            self.fset = None
+            self.buf = FactorBuffers(sched, nnz, self.dtype, device)
+            self.lock = threading.Lock()
+        else:
+            self.fset = _factor_graphs(sched, nnz, self.dtype, device,
+                                       self.staged)
+            self.buf = self.fset.static
+            self.lock = self.fset.lock
+        if self.staged:
+            self.lu = StagedLU(plan=plan, schedule=sched, dtype=self.dtype,
+                               panels=self.buf.views, tiny_pivots=0)
+        else:
+            self.lu = DeviceLU(plan, sched, self.dtype, *self.buf.flats,
+                               tiny_pivots=0)
+        self._solvers: dict = {}
+        self._refinements: dict = {}
+
+    def factor(self, scaled, thresh: float) -> None:
+        """Factor the scaled values (plan COO order, a device tensor or
+        numpy) into the static slabs; the pivot counters stay in
+        `buf.counts`.  The caller holds `lock`."""
+        self.buf.load(scaled, thresh)
+        _factor_sweep(self.sched, self.dtype, self.staged, self.buf,
+                      self.fset)
+
+    def solver(self, R: int, dtype: torch.dtype):
+        """The handle's solve programs at nrhs R in `dtype` (their runs
+        are serialised by `lock`: the handle is the context's own)."""
+        from . import trisolve
+        key = (R, dtype)
+        if key not in self._solvers:
+            self._solvers[key] = trisolve.solve_programs(
+                self.lu, R, dtype, False, eager=self.eager)
+        return self._solvers[key]
+
+    def refinement(self, key, make):
+        """The refinement state of `key`, made by `make()` at first
+        use."""
+        if key not in self._refinements:
+            self._refinements[key] = make()
+        return self._refinements[key]
+
+    def run(self, key, body) -> None:
+        """Run one refinement program: a graph of the context's own
+        graph set on the card (captured at first use), eagerly
+        otherwise."""
+        if self.eager:
+            body()
+            return
+        graphs.graph_set(self, "refine", self.device,
+                         lambda: None).run(key, body)
+
+    def graph_count(self) -> int:
+        """Graphs this context's calls replay or have captured: the
+        schedule's factor graphs, the handle's solve graphs and the
+        refinement graphs."""
+        return (graphs.graph_count(self.sched)
+                + graphs.graph_count(self.lu) + graphs.graph_count(self))
+
+
+_fused_lock = threading.Lock()
+
+
+def fused_context(plan: FactorPlan, dtype, device, staged: bool,
+                  eager: bool = False) -> FusedContext:
+    """The plan's FusedContext for (factor dtype, arm, device), made at
+    first use and cached on its schedule."""
+    sched = get_schedule(plan)
+    key = (np.dtype(dtype).str, bool(staged), str(device), bool(eager))
+    with _fused_lock:
+        cache = sched.__dict__.setdefault("_fused", {})
+        if key not in cache:
+            cache[key] = FusedContext(plan, dtype, device, staged, eager)
+        return cache[key]
+
+
+def _to_device(a, device, what: str) -> torch.Tensor:
+    """numpy or a tensor on `device` (a real floating dtype)."""
+    t = (a if isinstance(a, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(a))).to(device)
+    if t.is_complex():
+        raise NotImplementedError(_COMPLEX_TODO)
+    if not t.is_floating_point():
+        raise TypeError(f"{what} must be floating point, got {t.dtype}")
+    return t
+
+
+def _fused_inputs(plan: FactorPlan, vals, b, device) -> tuple:
+    """A fused step's (vals, b) on `device`, checked against the plan:
+    vals (nnz,) in plan COO order, b (n, nrhs)."""
+    v = _to_device(vals, device, "vals")
+    bt = _to_device(b, device, "b")
+    nnz, n = len(plan.coo_rows), plan.n
+    if v.shape != (nnz,) or bt.ndim != 2 or bt.shape[0] != n:
+        raise ValueError(f"vals {tuple(v.shape)} and b {tuple(bt.shape)}: "
+                         f"expected ({nnz},) and ({n}, nrhs)")
+    return v, bt
+
+
+def _fused_device(plan: FactorPlan, device) -> torch.device:
+    """The step's device: `device`, else the plan's (set by the entry
+    point that planned it), resolved as the entry points resolve it."""
+    return resolve_device(device if device is not None
+                          else getattr(plan, "device", None))
+
+
+def make_fused_step(plan: FactorPlan, dtype=np.float64, device=None,
+                    eager: bool = False):
+    """Build `step(vals, b) -> x`: the whole numeric phase — assemble,
+    level-batched factorization, forward and backward sweeps — in one
+    call (reference `ops/batched.py` make_fused_step).  `vals` are the
+    scaled values in plan COO order and `b` the right-hand side in
+    factor ordering, shape (n, nrhs), numpy or tensors; x comes back on
+    the step's device in the promoted dtype of the factors and b (the
+    solve promotes, it does not cast).  No zero-pivot check: as in the
+    reference, a singular factor gives a non-finite x."""
+    dtype = np.dtype(dtype)
+    if dtype.kind == "c":
+        raise NotImplementedError(_COMPLEX_TODO)
+    dev = _fused_device(plan, device)
+    ctx = fused_context(plan, dtype, dev, staged_enabled(get_schedule(plan)),
+                        eager)
+    thresh = _thresh_for(plan, dtype)
+
+    def step(vals, b):
+        v, bt = _fused_inputs(plan, vals, b, dev)
+        sdt = torch.promote_types(torch_dtype(dtype), bt.dtype)
+        with ctx.lock:
+            ctx.factor(v, thresh)
+            sp = ctx.solver(bt.shape[1], sdt)
+            sp.bufs.load(bt)
+            sp.run()
+            return sp.bufs.X.clone()
+
+    step.context = ctx
+    return step
+
+
+def _resid_berr(spmv, b: torch.Tensor, x: torch.Tensor):
+    """(r, berr): the residual b − A·x and the componentwise backward
+    error max_i |r_i| / (|A|·|x| + |b|)_i (a zero denominator counts as
+    1), one scalar over every right-hand side, as a device tensor."""
+    r = b - spmv.matvec(x)
+    denom = spmv.absmatvec(x.abs()) + b.abs()
+    denom = torch.where(denom == 0, 1, denom)
+    return r, (r.abs() / denom).max()
+
+
+class _Refinement:
+    """The refinement loop's state for one (nrhs, refine dtype, layout,
+    max_steps) of a FusedContext, as static tensors, and its two
+    programs:
+
+    * `start`: x = 0, r = b, berr = inf, steps = 0, and the first
+      sweep's right-hand side;
+    * `update`, after each solve: the correction d from the solve's X,
+      x_new = x + d, the residual and berr of x_new through the device
+      SpMV, the keep-the-better selects, the stop flag, the next
+      sweep's right-hand side, and (stop, berr) into `flag`.
+
+    The decisions are the reference's fused loop (ops/batched.py
+    make_fused_solver `step_body`): the first iteration is the base
+    solve and is kept whatever its berr; a later x is kept when berr
+    drops; the loop stops when berr did not halve, or after
+    max_steps + 1 iterations (the host also stops at berr ≤ eps)."""
+
+    def __init__(self, ctx: FusedContext, R: int, rdt, layout: str,
+                 max_steps: int):
+        from .spmv import DeviceSpMV
+        plan, dev = ctx.plan, ctx.device
+        n = plan.n
+        self.rdt = torch_dtype(rdt)
+        self.fdt = torch_dtype(ctx.dtype)
+        self.max_steps = int(max_steps)
+        self.sp = ctx.solver(R, self.fdt)    # the sweep runs in dtype
+        self.spmv = DeviceSpMV.pattern(_plan_indptr(plan), plan.coo_cols,
+                                       n, rdt, dev, layout=layout)
+        inv_final_row = np.empty(n, dtype=np.int64)
+        inv_final_row[plan.final_row] = np.arange(n)
+        z = dict(dtype=self.rdt, device=dev)
+        self.row_scale = torch.from_numpy(
+            np.asarray(plan.row_scale, dtype=rdt)).to(dev)
+        self.col_scale = torch.from_numpy(
+            np.asarray(plan.col_scale, dtype=rdt)).to(dev)
+        self.final_col = torch.from_numpy(
+            np.asarray(plan.final_col, dtype=np.int64)).to(dev)
+        self.inv_final_row = torch.from_numpy(inv_final_row).to(dev)
+        self.b = torch.zeros((n, R), **z)
+        self.x = torch.zeros((n, R), **z)
+        self.r = torch.zeros((n, R), **z)
+        self.berr = torch.zeros((), **z)
+        self.steps = torch.zeros((), dtype=torch.int64, device=dev)
+        self.flag = torch.zeros(2, dtype=torch.float64, device=dev)
+        self.card = dev.type == "cuda"
+        self.host = torch.zeros(2, dtype=torch.float64,
+                                pin_memory=self.card)
+
+    def _pre(self, r):
+        """Original-order residual -> factor-order sweep right-hand
+        side, cast to the factor dtype (reference `_pre_impl`)."""
+        return (r * self.row_scale[:, None]).index_select(
+            0, self.inv_final_row).to(self.fdt)
+
+    def _post(self, y):
+        """Factor-order sweep output -> original-order correction in the
+        refine dtype (reference `_post_impl`)."""
+        return (y.index_select(0, self.final_col).to(self.rdt)
+                * self.col_scale[:, None])
+
+    def start(self) -> None:
+        self.x.zero_()
+        self.r.copy_(self.b)
+        self.berr.fill_(float("inf"))
+        self.steps.zero_()
+        self.sp.bufs.B[:-1].copy_(self._pre(self.r))
+
+    def update(self) -> None:
+        x_new = self.x + self._post(self.sp.bufs.X)
+        r_new, berr_new = _resid_berr(self.spmv, self.b, x_new)
+        first = self.steps == 0
+        improved = berr_new < self.berr * 0.5
+        better = first | (berr_new < self.berr)
+        stop = ((~first & ~improved)
+                | (self.steps + 1 >= self.max_steps + 1))
+        self.x.copy_(torch.where(better, x_new, self.x))
+        self.r.copy_(torch.where(better, r_new, self.r))
+        self.berr.copy_(torch.where(better, berr_new, self.berr))
+        self.steps += 1
+        self.sp.bufs.B[:-1].copy_(self._pre(self.r))
+        self.flag[0].copy_(stop)
+        self.flag[1].copy_(self.berr)
+
+    def read(self) -> tuple:
+        """(stop, berr) of the last update, read on the host: the one
+        host sync of an iteration."""
+        if self.card:
+            self.host.copy_(self.flag, non_blocking=True)
+            torch.cuda.current_stream(self.flag.device).synchronize()
+        else:
+            self.host.copy_(self.flag)
+        stop, berr = self.host.tolist()
+        return bool(stop), berr
+
+
+def _plan_indptr(plan: FactorPlan) -> np.ndarray:
+    """CSR row pointers of the plan's COO pattern (plan COO order is
+    CSR row-major order)."""
+    counts = np.bincount(np.asarray(plan.coo_rows), minlength=plan.n)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+
+def make_fused_solver(plan: FactorPlan, dtype=np.float32,
+                      refine_dtype=None, max_steps: Optional[int] = None,
+                      staged: Optional[bool] = None,
+                      residual_mode: str = "auto", device=None,
+                      eager: bool = False):
+    """Build `step(vals, b) -> (x, berr, steps, tiny, nzero)`: the whole
+    pdgssvx numeric pipeline on the device — scale, assemble,
+    level-batched factorization in `dtype`, the sweeps, then iterative
+    refinement with `refine_dtype` residual accumulation through the
+    device SpMV (pdgsrfs + pdgsmv, SRC/pdgsrfs.c:124, SRC/pdgsmv.c; the
+    mixed-precision strategy of psgssvx_d2, SRC/psgssvx_d2.c:516).  The
+    reference's `make_fused_solver`, single device, real dtypes.
+
+    `vals` are the unscaled values in plan COO order and `b` the
+    right-hand side in the original ordering, shape (n, nrhs), numpy
+    or tensors; the results are tensors on the step's device: x
+    (refine dtype), berr (a scalar), steps (refinement steps after the
+    base solve), and the tiny- and zero-pivot counts.  A zero pivot
+    does not raise: it shows in `nzero` and a non-finite berr.
+
+    `staged` None follows `staged_enabled`; both arms run the same way
+    here (the staged arm's factor and solve programs per merged
+    segment, the whole-phase arm's one factor program and one packed
+    solve program).  On the card every program is a CUDA graph,
+    captured at its first use; `eager=True` runs the same bodies
+    eagerly there (the oracle of the card tests).  The residual mode,
+    the refine dtype, the step budget and the SpMV layout resolve as
+    the reference resolves them; where the reference would run its
+    double-word lane this raises NotImplementedError (ROADMAP queue 1
+    item 11), and complex dtypes raise (item 10)."""
+    from ..options import IterRefine
+    from ..precision.policy import resolve_residual_mode
+    from .spmv import ell_from_csr, spmv_layout
+    dtype = np.dtype(dtype)
+    if dtype.kind == "c":
+        raise NotImplementedError(_COMPLEX_TODO)
+    sched = get_schedule(plan)
+    # ---- the residual mode (precision/policy.py), resolved as the
+    # reference resolves it ----
+    mode = (residual_mode if residual_mode != "auto"
+            else resolve_residual_mode(plan.options))
+    if mode not in ("plain", "doubleword", "fp64"):
+        raise ValueError(f"unknown residual_mode {mode!r}; expected "
+                         "auto|plain|doubleword|fp64")
+    if mode == "doubleword" and dtype.itemsize >= 8:
+        # an f64 factor gains nothing from fp32 pairs
+        if residual_mode == "doubleword":
+            raise ValueError(
+                "residual_mode='doubleword' is the single-device real "
+                "fused path for low-precision factors (df64 fp32 "
+                "pairs); an f64-class factor gains nothing from fp32 "
+                "pairs — use residual_mode='fp64' there")
+        mode = "fp64"
+    if mode == "doubleword":
+        if staged:
+            if residual_mode == "doubleword":
+                raise ValueError(
+                    "residual_mode='doubleword' requires the fused "
+                    "one-program formulation; pass staged=False")
+            mode = "fp64"
+        elif staged is None and staged_enabled(sched):
+            if residual_mode == "doubleword":
+                staged = False
+            else:
+                mode = "fp64"
+    if mode == "doubleword":
+        raise NotImplementedError(_DF64_TODO)
+    if refine_dtype is None:
+        refine_dtype = (dtype if mode == "plain"
+                        else plan.options.refine_dtype)
+    rdt = np.dtype(refine_dtype)
+    if rdt.kind == "c":
+        raise NotImplementedError(_COMPLEX_TODO)
+    if max_steps is None:
+        max_steps = (0 if plan.options.iter_refine == IterRefine.NOREFINE
+                     else int(plan.options.max_refine_steps))
+    if staged is None:
+        staged = staged_enabled(sched)
+    dev = _fused_device(plan, device)
+    ctx = fused_context(plan, dtype, dev, staged, eager)
+    thresh = _thresh_for(plan, dtype)
+    eps = float(np.finfo(rdt).eps)
+    n, nnz = plan.n, len(plan.coo_rows)
+    # ---- the residual SpMV's layout: padded ELL unless its padding
+    # exceeds the waste limit (ops/spmv.py) ----
+    _, ell_w = ell_from_csr(_plan_indptr(plan), plan.coo_cols, nnz=nnz)
+    layout = spmv_layout(nnz, n, ell_w)
+    scale_fac = torch.from_numpy(np.asarray(
+        plan.row_scale[plan.coo_rows] * plan.col_scale[plan.coo_cols],
+        dtype=np.float64)).to(dev)
+
+    def step(vals, b):
+        v, bt = _fused_inputs(plan, vals, b, dev)
+        R = bt.shape[1]
+        key = (R, rdt.str, layout, max_steps)
+        with ctx.lock:
+            st = ctx.refinement(key, lambda: _Refinement(
+                ctx, R, rdt, layout, max_steps))
+            ctx.factor(v * scale_fac, thresh)
+            st.spmv.load(v)
+            st.b.copy_(bt)
+            ctx.run(("start",) + key, st.start)
+            steps, berr, stop = 0, float("inf"), False
+            while not stop and berr > eps:
+                st.sp.run()
+                ctx.run(("update",) + key, st.update)
+                stop, berr = st.read()
+                steps += 1
+            counts = ctx.buf.counts.to(torch.int32)
+            x, berr_t = st.x.clone(), st.berr.clone()
+        # steps counts loop iterations; the first is the base solve
+        return (x, berr_t,
+                torch.tensor(max(steps - 1, 0), dtype=torch.int32,
+                             device=dev),
+                counts[0], counts[1])
+
+    def resid_fn(vals, b, x):
+        """The refinement residual and berr exactly as the loop computes
+        them: (r, berr) of x for the unscaled `vals` and b (original
+        ordering, cast to the refine dtype)."""
+        from .spmv import DeviceSpMV
+        v, bt = _fused_inputs(plan, vals, b, dev)
+        op = DeviceSpMV.pattern(_plan_indptr(plan), plan.coo_cols, n, rdt,
+                                dev, layout=layout)
+        op.load(v)
+        tr = torch_dtype(rdt)
+        return _resid_berr(op, bt.to(tr), _to_device(x, dev, "x").to(tr))
+
+    step.resid_fn = resid_fn
+    step.spmv_layout = layout
+    step.residual_mode = mode
+    step.context = ctx
+    return step

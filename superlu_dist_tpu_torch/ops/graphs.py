@@ -27,6 +27,7 @@ captured once into a CUDA graph and replayed:
 
 from __future__ import annotations
 
+import gc
 import threading
 from typing import Callable, Hashable
 
@@ -82,6 +83,12 @@ class Graph:
         before = [f.launches for f in COUNTED]
         graph = torch.cuda.CUDAGraph()
         s.wait_stream(torch.cuda.current_stream(device))
+        # no garbage collection inside the capture: a collection there
+        # can free another graph (held in a reference cycle, as a fused
+        # context is), and destroying a graph while a stream captures
+        # is refused by CUDA and invalidates this capture
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.stream(s):
                 graph.capture_begin(pool=pool,
@@ -96,6 +103,8 @@ class Graph:
                     raise
                 graph.capture_end()
         finally:
+            if gc_on:
+                gc.enable()
             # the capture launched nothing: its counts belong to replays
             self.launches = tuple(f.launches - b
                                   for f, b in zip(COUNTED, before))

@@ -31,6 +31,7 @@ same bodies run eagerly.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from functools import partial
 from typing import List
 
@@ -384,41 +385,10 @@ def _final_gather(bufs: SolveBuffers, fin: torch.Tensor) -> None:
     torch.index_select(bufs.XF, 0, fin, out=bufs.X)
 
 
-def _run_solve(lu, b: torch.Tensor, trans: bool, eager: bool,
-               programs) -> torch.Tensor:
-    """Solve with b (n, nrhs, in the solve dtype) through the programs
-    that `programs(ts, packs, idxs, fin)` lists — [(key, body(bufs))],
-    in order: eagerly on fresh buffers on the CPU or when `eager`, else
-    as the handle's graphs for (nrhs, trans, rhs dtype), captured at
-    first use.  Returns the solution, the caller's own."""
-    ts = get_trisolve(lu.schedule)
-    packs = get_packs(lu)
-    device = lu.device
-    idxs, fin = ts.dev(device)       # uploaded before any capture
-    progs = programs(ts, packs, idxs, fin)
-    R = b.shape[-1]
-    if eager or not graphs.on_card(device):
-        bufs = SolveBuffers(ts, R, b.dtype, device)
-        bufs.load(b)
-        for _, body in progs:
-            body(bufs)
-        return bufs.X
-    gset = graphs.graph_set(
-        lu, (R, bool(trans), str(b.dtype), _limits_key()), device,
-        lambda: SolveBuffers(ts, R, b.dtype, device))
-    bufs = gset.static
-    with gset.lock:
-        bufs.load(b)
-        for key, body in progs:
-            gset.run(key, lambda body=body: body(bufs))
-        return bufs.X.clone()
-
-
-def staged_sweeps(lu, b: torch.Tensor, trans: bool,
-                  eager: bool = False) -> torch.Tensor:
-    """The staged solve of a StagedLU: one program per merged forward
+def _staged_programs(trans: bool):
+    """The staged solve's program list: one program per merged forward
     segment, one per backward segment (in reverse), and the final
-    gather.  b (n, nrhs) in factor ordering and the solve dtype."""
+    gather."""
     def programs(ts, packs, idxs, fin):
         fwd = [(("fwd", tuple(seg), seg_metas(ts, seg)),
                 partial(_staged_fwd_segment, ts, packs, idxs, seg,
@@ -429,7 +399,73 @@ def staged_sweeps(lu, b: torch.Tensor, trans: bool,
                         trans=trans))
                for seg in reversed(ts.segments)]
         return fwd + bwd + [(("gather",), partial(_final_gather, fin=fin))]
-    return _run_solve(lu, b, trans, eager, programs)
+    return programs
+
+
+class SolvePrograms:
+    """One handle's solve at one (nrhs, trans, rhs dtype): the programs
+    that `programs(ts, packs, idxs, fin)` lists — [(key, body(bufs))],
+    in order — on one set of SolveBuffers.  The caller fills
+    `bufs.B[:-1]`, calls `run()` and reads `bufs.X`.  On the card the
+    programs are the handle's graphs for that key (captured at first
+    use; the buffers are their static tensors, and the caller holds
+    `lock` from filling B to reading X); on the CPU, or with `eager`,
+    they run eagerly on buffers of this object's own."""
+
+    def __init__(self, lu, R: int, dtype, trans: bool, programs,
+                 eager: bool = False):
+        ts = get_trisolve(lu.schedule)
+        packs = get_packs(lu)
+        device = lu.device
+        idxs, fin = ts.dev(device)       # uploaded before any capture
+        self.progs = programs(ts, packs, idxs, fin)
+        if eager or not graphs.on_card(device):
+            self.gset = None
+            self.bufs = SolveBuffers(ts, R, dtype, device)
+            self.lock = threading.Lock()
+        else:
+            self.gset = graphs.graph_set(
+                lu, (R, bool(trans), str(dtype), _limits_key()), device,
+                lambda: SolveBuffers(ts, R, dtype, device))
+            self.bufs = self.gset.static
+            self.lock = self.gset.lock
+
+    def run(self) -> None:
+        for key, body in self.progs:
+            if self.gset is None:
+                body(self.bufs)
+            else:
+                self.gset.run(key, lambda body=body: body(self.bufs))
+
+
+def solve_programs(lu, R: int, dtype, trans: bool = False,
+                   eager: bool = False) -> SolvePrograms:
+    """The solve programs of a handle as the reference routes them: a
+    StagedLU through the staged segment sweeps, any other handle
+    through the packed solve."""
+    from .batched import StagedLU
+    programs = (_staged_programs(trans) if isinstance(lu, StagedLU)
+                else _solve_packed_fn(trans))
+    return SolvePrograms(lu, R, dtype, trans, programs, eager)
+
+
+def _run_solve(lu, b: torch.Tensor, trans: bool, eager: bool,
+               programs) -> torch.Tensor:
+    """Solve with b (n, nrhs, in the solve dtype) through `programs`
+    (see SolvePrograms).  Returns the solution, the caller's own."""
+    sp = SolvePrograms(lu, b.shape[-1], b.dtype, trans, programs, eager)
+    with sp.lock:
+        sp.bufs.load(b)
+        sp.run()
+        return sp.bufs.X if sp.gset is None else sp.bufs.X.clone()
+
+
+def staged_sweeps(lu, b: torch.Tensor, trans: bool,
+                  eager: bool = False) -> torch.Tensor:
+    """The staged solve of a StagedLU: one program per merged forward
+    segment, one per backward segment (in reverse), and the final
+    gather.  b (n, nrhs) in factor ordering and the solve dtype."""
+    return _run_solve(lu, b, trans, eager, _staged_programs(trans))
 
 
 def sweep(ts: TrisolveSchedule, packs, idxs, fin, trans: bool,

@@ -485,6 +485,38 @@ def test_warmup_captures_every_segment_ahead(card, monkeypatch):
     assert np.array_equal(st.get_diag_u(lu2), st.get_diag_u(lu))
 
 
+def test_capture_survives_garbage_holding_a_graph(card):
+    """A graph held only by a reference cycle (as a fused context holds
+    its graphs) is garbage until a collection frees it; a collection
+    inside a later capture would destroy it while the stream captures.
+    Captures run with collection off: a body that lowers the threshold
+    to 1 and then allocates many objects still captures and replays."""
+    import gc
+    from superlu_dist_tpu_torch.ops import graphs
+    x = torch.ones(4, dtype=torch.float64, device=card)
+    old = gc.get_threshold()
+    gc.collect()
+
+    def body():
+        gc.set_threshold(1)
+        for i in range(200):
+            x.add_(0.0)
+            [i]                         # one container allocation
+
+    try:
+        held = graphs.GraphSet(card)
+        held.run("a", lambda: x.mul_(1.0))
+        cycle = [held]
+        cycle.append(cycle)
+        del held, cycle
+        graphs.GraphSet(card).run("b", body)
+    finally:
+        gc.set_threshold(*old)
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.ones_like(x))
+    gc.collect()
+
+
 def test_failed_capture_raises(card):
     """A body that syncs with the host cannot be captured: the capture
     raises, with no eager fallback, and keeps no graph."""
@@ -494,3 +526,166 @@ def test_failed_capture_raises(card):
     with pytest.raises(RuntimeError):
         gset.run("sync", lambda: float(x.sum()))
     assert not gset.graphs
+
+
+# --------------------------------------------------------------------
+# refinement on the device: the residual SpMV (ops/spmv.py) and the
+# fused solver (ops/batched.py make_fused_solver), graphs against the
+# same bodies run eagerly
+# --------------------------------------------------------------------
+
+def _ragged(k=12):
+    """laplacian_3d(k) with row 7 emptied: ragged rows and one empty
+    row, so the ELL band has pad slots everywhere."""
+    import scipy.sparse as sp
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
+    m = laplacian_3d(k).to_scipy().tolil()
+    m[7, :] = 0
+    m = sp.csr_matrix(m)
+    m.eliminate_zeros()
+    return st.csr_from_scipy(m)
+
+
+@pytest.mark.parametrize("layout", ["ell", "coo"])
+def test_device_spmv_on_card_matches_scipy(card, monkeypatch, layout):
+    """Both layouts against scipy at nrhs 1 (1-D) and 3, with pad slots
+    in every ELL row (none may index past x); the ELL lane gives the
+    same bits on every call, the COO lane's atomic adds agree with the
+    ELL lane to rounding."""
+    from superlu_dist_tpu_torch.ops.spmv import DeviceSpMV
+    a = _ragged()
+    sp = a.to_scipy()
+    monkeypatch.setenv("SLU_SPMV_LAYOUT", layout)
+    m = DeviceSpMV.build(a, device=card)
+    monkeypatch.setenv("SLU_SPMV_LAYOUT", "ell")
+    ell = DeviceSpMV.build(a, device=card)
+    assert m.layout == layout
+    rng = np.random.default_rng(8)
+    for x in (rng.standard_normal(a.n), rng.standard_normal((a.n, 3))):
+        xt = torch.from_numpy(x).to(card)
+        y = m.matvec(xt)
+        ya = m.absmatvec(xt.abs())
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(y.cpu().numpy(), sp @ x, rtol=1e-12,
+                                   atol=1e-13)
+        np.testing.assert_allclose(ya.cpu().numpy(), abs(sp) @ np.abs(x),
+                                   rtol=1e-12)
+        assert _rel(y, ell.matvec(xt)) <= 1e-15
+        if layout == "ell":
+            assert all(torch.equal(m.matvec(xt), y) for _ in range(3))
+
+
+def _fused_plan(card, k=10):
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
+    a = laplacian_3d(k)
+    return a, st.plan_factorization(a, device=card)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("staged", [True, False])
+def test_fused_solver_graphs_equal_eager(card, monkeypatch, staged,
+                                         dtype):
+    """Both arms, f64 and f32 factors (f64 refinement), nrhs 1 and 4:
+    the graph replays give the eager loop's x and berr bit for bit, the
+    same steps and counts, berr ≤ 64·eps(f64); every kernel launched;
+    the second and third calls capture no graph."""
+    from superlu_dist_tpu_torch.ops import batched, graphs
+    _arm(monkeypatch, staged)
+    a, plan = _fused_plan(card)
+    vals = torch.from_numpy(a.data).to(card)
+    eager = batched.make_fused_solver(plan, dtype, eager=True)
+    step = batched.make_fused_solver(plan, dtype)
+    assert step.context is not eager.context
+    assert step.context.staged == staged
+    rng = np.random.default_rng(9)
+    for R in (1, 4):
+        b = torch.from_numpy(rng.standard_normal((a.n, R))).to(card)
+        ref = eager(vals, b)
+        counts = []
+        for f in graphs.COUNTED:
+            f.launches = 0
+        for call in range(3):
+            out = step(vals, b)
+            counts.append(step.context.graph_count())
+            assert torch.equal(out[0], ref[0])
+            assert torch.equal(out[1], ref[1])
+            assert [int(o) for o in out[2:]] == [int(o) for o in ref[2:]]
+        assert counts[0] == counts[1] == counts[2] > 0
+        assert all(f.launches > 0 for f in graphs.COUNTED)
+        assert float(out[1]) <= 64 * np.finfo(np.float64).eps
+        assert out[0].dtype == torch.float64 and out[0].device == card
+        if dtype == "float32":
+            assert int(out[2]) >= 1
+
+
+def test_fused_step_graphs_equal_eager(card):
+    from superlu_dist_tpu_torch.ops import batched
+    a, plan = _fused_plan(card)
+    vals = plan.scaled_values(a)
+    b = np.random.default_rng(10).standard_normal((a.n, 2))
+    x = batched.make_fused_step(plan, np.float64)(vals, b)
+    x_ref = batched.make_fused_step(plan, np.float64, eager=True)(vals, b)
+    assert torch.equal(x, x_ref)
+    lu = batched.factorize_device(plan, vals, np.float64, card, eager=True)
+    assert np.array_equal(x.cpu().numpy(),
+                          batched.solve_device(lu, b, eager=True))
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_fused_call_leaves_held_factorization(card, monkeypatch, staged):
+    """A gssvx handle factored before fused calls on the same plan
+    (which replay the same factor graphs) solves to the same bits after
+    them, and its factors are unchanged."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched
+    _arm(monkeypatch, staged)
+    a, plan = _fused_plan(card)
+    lu = st.factorize(a, plan=plan)
+    snap = [f.clone() for f in lu.device_lu.flats()]
+    b = np.random.default_rng(11).standard_normal(a.n)
+    x0 = st.solve(lu, b)
+    step = batched.make_fused_solver(plan, "float64")
+    for scale in (2.0, 3.0):
+        step(torch.from_numpy(a.data * scale).to(card), b[:, None])
+    assert all(torch.equal(f, s) for f, s in
+               zip(lu.device_lu.flats(), snap))
+    assert np.array_equal(st.solve(lu, b), x0)
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_fused_zero_pivot_returns_nzero(card, monkeypatch, staged):
+    """replace_tiny_pivot=NO with an exactly singular leading block: the
+    fused solver returns nzero > 0 and a non-finite berr on the capturing
+    call and on a replay, and raises nothing."""
+    import scipy.sparse as sp
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched
+    from superlu_dist_tpu_torch.options import RowPerm, YesNo
+    _arm(monkeypatch, staged)
+    A = st.csr_from_scipy(sp.csr_matrix(np.array([[1.0, 1.0, 0.0],
+                                                  [1.0, 1.0, 0.0],
+                                                  [0.0, 0.0, 1.0]])))
+    opts = st.Options(replace_tiny_pivot=YesNo.NO, equil=YesNo.NO,
+                      row_perm=RowPerm.NOROWPERM)
+    plan = st.plan_factorization(A, opts, device=card)
+    step = batched.make_fused_solver(plan, "float64")
+    for _ in range(2):
+        x, berr, steps, tiny, nzero = step(A.data, np.ones((3, 1)))
+        assert int(nzero) > 0 and int(steps) == 0
+        assert not bool(torch.isfinite(berr))
+
+
+def test_factorize_uploads_the_schedule_once(card):
+    """factorize(..., device="cuda") (no index) keeps one device copy
+    of every group's index sets, under the indexed device's name."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
+    a = laplacian_3d(8)
+    lu = st.factorize(a, device="cuda")
+    st.solve(lu, np.ones(a.n))
+    sched = batched.get_schedule(lu.plan)
+    assert all(list(g._dev) == [str(card)] for g in sched.groups)
+    assert lu.device == card
