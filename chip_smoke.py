@@ -65,7 +65,33 @@ Phases, each of which raises (non-zero exit) on failure:
                  device busy and idle share of a replayed factorization
                  and solve under torch.profiler; peak device memory,
                  eager against graphs; graphs and segments;
-  9. the kernels line, the card line, and the contract line last.
+  9. gate      — the numerical-trust layer, with SLU_COND_ESTIMATE=1 set
+                 for this phase only (and restored after it):
+                 (a) gssvx on laplacian_3d(48) in float64, launch counts
+                 set to 0 just before and read just after (each > 0):
+                 rcond and its class, the estimator's solves (at most
+                 2·SLU_COND_MAXITER + 2), its wall, the solve graphs it
+                 captured (the TRANS lane's first solve, reported apart
+                 from the replays), the K3 launches inside it (> 0),
+                 berr ≤ 64·eps(f64) and a plain (unstamped) result; then a
+                 second gated gssvx on the same handle (Fact.FACTORED),
+                 which must capture 0 graphs and estimate nothing, its
+                 SOLVE wall beside the estimator's;
+                 (b) the same rcond with K3 replaced by its plain version
+                 (eager sweeps on the card), to 1e-8 relative;
+                 (c) convection_diffusion_2d(200) in float64: the card's
+                 rcond against the port's inv_norm_est fed by scipy splu
+                 solves on the host, to 1e-8 relative;
+                 (d) the gauntlet corpus (numerics/gauntlet.py) through
+                 gssvx on the card: the count of each outcome, zero
+                 silent_wrong and zero untyped, each case's outcome the
+                 CPU run's, K1–K3 launches > 0;
+                 (e) random_unsymmetric(150, density=0.03) under
+                 RowPerm.NOROWPERM, nrhs 3: a typed refusal or a stamped
+                 result;
+ 10. the kernels line, the card line, and the contract line last.  Each
+     kernel's `launches` is the sum of its launches in phase 4's main
+     path (`launches_main`) and in phase 9's drive (a) (`launches_gate`).
 Everything is made from fixed seeds.  Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -223,6 +249,7 @@ def drive(label, options, a, lu=None, seed=0):
         "factor_flops": float(lu.plan.factor_flops),
         "groups": len(lu.device_lu.schedule.groups),
         "launches": launches,
+        "result_type": type(x).__name__, "rcond": stats.rcond,
     }
     log(f"[{label}] " + json.dumps(rec))
     if not np.all(np.isfinite(x)) or x.shape != (a.n,):
@@ -530,6 +557,228 @@ def fused_phase(label, a, plan, dtype, rounds=3):
     rec["graphs"] = ctx.graph_count()
     log(f"[fused {label}] " + json.dumps(rec))
     return rec
+
+
+# --------------------------------------------------------------------
+# the numerical-trust layer: condition gate, ledger, gauntlet
+# --------------------------------------------------------------------
+
+class _EstimatorWatch:
+    """Wraps the port's rcond estimator and its solve entry point for
+    the gate phase: per estimate, its wall, the solve graphs it
+    captured and the K3 launches inside it; per inner solve, its lane,
+    wall and the graphs it captured.  `restore()` puts both back."""
+
+    def __init__(self):
+        from superlu_dist_tpu_torch.models import gssvx as gm
+        from superlu_dist_tpu_torch.numerics import gscon
+        from superlu_dist_tpu_torch.ops import graphs, lsum
+        self.gm, self.gscon = gm, gscon
+        self.orig_solve, self.orig_est = gm.solve, gscon.estimate_rcond
+        self.calls, self.solves = [], None
+
+        def solve(lu, b, stats=None):
+            if self.solves is None:
+                return self.orig_solve(lu, b, stats=stats)
+            g0 = graphs.graph_count(lu.device_lu)
+            w, x = _synced(lambda: self.orig_solve(lu, b, stats=stats))
+            self.solves.append({
+                "lane": lu.effective_options.trans.name, "s": w,
+                "captured": graphs.graph_count(lu.device_lu) - g0})
+            return x
+
+        def estimate(lu, *a, **k):
+            self.solves = []
+            g0 = graphs.graph_count(lu.device_lu)
+            k3 = lsum.lsum_panel.launches
+            try:
+                w, r = _synced(lambda: self.orig_est(lu, *a, **k))
+            finally:
+                solves, self.solves = self.solves, None
+            self.calls.append({
+                "rcond": r, "wall_s": w, "solves": solves,
+                "captured": graphs.graph_count(lu.device_lu) - g0,
+                "lsum_launches": lsum.lsum_panel.launches - k3})
+            return r
+
+        gm.solve, gscon.estimate_rcond = solve, estimate
+
+    def restore(self):
+        self.gm.solve = self.orig_solve
+        self.gscon.estimate_rcond = self.orig_est
+
+
+def _rel(x, y):
+    return abs(x - y) / abs(y) if y else abs(x - y)
+
+
+def _estimate_plain_k3(lu):
+    """The handle's rcond with K3 replaced by its plain version: the
+    sweeps run eagerly on the card (no graph) with lsum_panel_plain."""
+    from superlu_dist_tpu_torch.numerics import gscon
+    from superlu_dist_tpu_torch.ops import graphs, lsum, trisolve
+    saved = trisolve.lsum_panel, graphs.on_card
+    trisolve.lsum_panel = lsum.lsum_panel_plain
+    graphs.on_card = lambda device: False
+    k3 = lsum.lsum_panel.launches
+    try:
+        w, r = _synced(lambda: gscon.estimate_rcond(lu))
+    finally:
+        trisolve.lsum_panel, graphs.on_card = saved
+    if lsum.lsum_panel.launches != k3:
+        raise RuntimeError("gate (b): the plain estimate launched K3")
+    return r, w
+
+
+def _scipy_rcond(a, max_iter):
+    """The port's inv_norm_est fed by scipy splu solves on the host."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    from superlu_dist_tpu_torch.numerics import gscon
+    f = spla.splu(a.to_scipy().tocsc())
+
+    def solve_fn(v, trans):
+        return f.solve(np.asarray(v, dtype=np.float64),
+                       trans="T" if trans else "N")
+
+    ainv = gscon.inv_norm_est(solve_fn, a.n, np.float64, max_iter=max_iter)
+    return float(min(1.0 / (gscon.one_norm(a) * ainv), 1.0))
+
+
+def gate_phase(a48):
+    """Phase 9 (see the module docstring); raises on any failed check.
+    Returns (record, launches of the gated laplacian_3d(48) drive)."""
+    import numpy as np
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch import flags
+    from superlu_dist_tpu_torch.numerics import gauntlet
+    from superlu_dist_tpu_torch.numerics.errors import NumericalError
+    from superlu_dist_tpu_torch.numerics.ledger import PerturbedResult
+    from superlu_dist_tpu_torch.numerics.policy import ConditionPolicy
+    from superlu_dist_tpu_torch.ops import batched, graphs
+    from superlu_dist_tpu_torch.utils import testmat
+    saved = os.environ.get("SLU_COND_ESTIMATE")
+    os.environ["SLU_COND_ESTIMATE"] = "1"
+    watch = _EstimatorWatch()
+    rec = {"card": card_line()}
+    try:
+        max_iter = flags.env_int("SLU_COND_MAXITER", 5)
+        policy = ConditionPolicy.from_env()
+        # (a) the gated drive
+        lu, drec = drive("gate f64 laplacian_3d(48)", st.Options(), a48,
+                         seed=9)
+        if len(watch.calls) != 1:
+            raise RuntimeError(f"gate: {len(watch.calls)} estimates, not 1")
+        est = watch.calls[0]
+        solves = est["solves"]
+        if not 3 <= len(solves) <= 2 * max_iter + 2:
+            raise RuntimeError(f"gate: {len(solves)} estimator solves")
+        if est["lsum_launches"] <= 0:
+            raise RuntimeError("gate: K3 never launched in the estimate")
+        if drec["result_type"] != "ndarray":
+            raise RuntimeError(f"gate: a {drec['result_type']} result on "
+                               "a well-conditioned matrix")
+        rcond = est["rcond"]
+        capture = [s for s in solves if s["captured"]]
+        replays = [s["s"] for s in solves if not s["captured"]]
+        # a second gated solve on the same handle: cached rcond, graphs
+        # replayed only
+        owners = (lu.device_lu, batched.get_schedule(lu.plan))
+        g0 = [graphs.graph_count(o) for o in owners]
+        b = a48.to_scipy() @ np.random.default_rng(9).standard_normal(a48.n)
+        w2, (x2, _, s2) = _synced(lambda: st.gssvx(
+            st.Options(fact=st.Fact.FACTORED), a48, b, lu=lu))
+        captured2 = sum(graphs.graph_count(o) - g
+                        for o, g in zip(owners, g0))
+        if captured2 or len(watch.calls) != 1:
+            raise RuntimeError(f"gate: the second gated solve captured "
+                               f"{captured2} graphs / re-estimated")
+        if not s2.berr <= BERR_MAX or type(x2) is not np.ndarray:
+            raise RuntimeError("gate: the FACTORED rung's result")
+        rec["a"] = {
+            "rcond": rcond, "class": policy.classify(rcond, "float64"),
+            "estimator_solves": len(solves),
+            "estimator_solves_max": 2 * max_iter + 2,
+            "estimator_wall_s": est["wall_s"],
+            "estimator_graphs_captured": est["captured"],
+            "capturing_solves": capture,
+            "replayed_solve_s_median": (statistics.median(replays)
+                                        if replays else None),
+            "replayed_solve_s": replays,
+            "lsum_launches_in_estimate": est["lsum_launches"],
+            "berr": drec["berr"], "result_type": drec["result_type"],
+            "launches": drec["launches"], "drive": drec,
+            "factored_wall_s": w2,
+            "factored_solve_s": s2.utime["SOLVE"],
+            "factored_refine_s": s2.utime["REFINE"],
+            "factored_graphs_captured": captured2}
+        # (b) the plain-K3 twin on the same handle
+        r_plain, w_plain = _estimate_plain_k3(lu)
+        rel_b = _rel(rcond, r_plain)
+        rec["b"] = {"rcond_plain_k3": r_plain, "wall_s": w_plain,
+                    "rel": rel_b}
+        if not rel_b <= 1e-8:
+            raise RuntimeError(f"gate (b): rcond {rcond} vs plain K3 "
+                               f"{r_plain}")
+        del lu, x2
+        # (c) convection_diffusion_2d(200) against scipy-fed estimates
+        acd = testmat.convection_diffusion_2d(200)
+        lucd, crec = drive("gate f64 convection_diffusion_2d(200)",
+                           st.Options(), acd, seed=10)
+        r_cd = watch.calls[-1]["rcond"]
+        w_sp, r_sp = _synced(lambda: _scipy_rcond(acd, max_iter))
+        rel_c = _rel(r_cd, r_sp)
+        rec["c"] = {"rcond": r_cd, "rcond_scipy": r_sp, "rel": rel_c,
+                    "estimator_wall_s": watch.calls[-1]["wall_s"],
+                    "estimator_solves": len(watch.calls[-1]["solves"]),
+                    "scipy_wall_s": w_sp, "drive": crec}
+        if not rel_c <= 1e-8:
+            raise RuntimeError(f"gate (c): rcond {r_cd} vs scipy {r_sp}")
+        del lucd
+        # (d) the gauntlet corpus on the card, each case against the CPU
+        _zero_launches()
+        recs, summary = gauntlet.run_gauntlet(
+            lambda a, b: st.gssvx(None, a, b)[0])
+        launches = _launches()
+        cpu, _ = gauntlet.run_gauntlet(
+            lambda a, b: st.gssvx(None, a, b, device="cpu")[0])
+        differ = [(r["name"], r["outcome"], c["outcome"])
+                  for r, c in zip(recs, cpu) if r["outcome"] != c["outcome"]]
+        rec["d"] = {"summary": summary, "launches": launches,
+                    "outcomes": {r["name"]: r["outcome"] for r in recs},
+                    "differ_from_cpu": differ}
+        if not summary["gate"]["passed"] or differ:
+            raise RuntimeError(f"gate (d): {summary['gate']} {differ}")
+        for k, v in launches.items():
+            if v <= 0:
+                raise RuntimeError(f"gate (d): kernel {k} never launched")
+        # (e) the NOROWPERM hard case
+        ar = testmat.random_unsymmetric(150, density=0.03)
+        br = np.random.default_rng(0).standard_normal((ar.n, 3))
+        try:
+            xr, lur, sr = st.gssvx(
+                st.Options(row_perm=st.RowPerm.NOROWPERM), ar, br)
+            if not isinstance(xr, PerturbedResult):
+                raise RuntimeError("gate (e): a plain result")
+            rec["e"] = {"outcome": "stamped", "rcond": sr.rcond,
+                        "tiny_pivots": sr.tiny_pivots,
+                        "finite": bool(np.isfinite(xr).all())}
+        except NumericalError as e:
+            rec["e"] = {"outcome": "refused_typed",
+                        "error": type(e).__name__,
+                        "rcond": getattr(e, "rcond", None)}
+    finally:
+        watch.restore()
+        if saved is None:
+            os.environ.pop("SLU_COND_ESTIMATE", None)
+        else:
+            os.environ["SLU_COND_ESTIMATE"] = saved
+    # the drives' records are logged by drive() already
+    log("[gate] " + json.dumps(
+        {k: ({f: x for f, x in v.items() if f != "drive"}
+             if isinstance(v, dict) else v) for k, v in rec.items()},
+        default=str))
+    return rec, rec["a"]["launches"]
 
 
 # --------------------------------------------------------------------
@@ -872,7 +1121,7 @@ KERNELS = {
 }
 
 
-def kernels_line(res, launches):
+def kernels_line(res, launches, gate_launches):
     out = []
     for name, (src, repl) in KERNELS.items():
         rows = res[name]
@@ -884,7 +1133,10 @@ def kernels_line(res, launches):
         head = max(f64, key=lambda r: r["bound_ms"])
         out.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": repl, "launches": int(launches[name]),
+            "replaces": repl,
+            "launches": int(launches[name] + gate_launches[name]),
+            "launches_main": int(launches[name]),
+            "launches_gate": int(gate_launches[name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -987,12 +1239,18 @@ def main(argv=None) -> int:
                         graph_phase("whole phase convection_diffusion_2d"
                                     "(200)", acd)]
 
+    # the numerical-trust layer (the condition gate on for this phase)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["gate"], gate_launches = gate_phase(a48)
+
     report["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(report, f, indent=1)
+        json.dump(report, f, indent=1, default=str)
 
-    # 9. the summary lines, the contract line last
-    log(json.dumps(kernels_line(res, rec["launches"])))
+    # 10. the summary lines, the contract line last
+    log(json.dumps(kernels_line(res, rec["launches"], gate_launches)))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

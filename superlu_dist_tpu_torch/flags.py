@@ -30,6 +30,13 @@ FLAGS: dict[str, str] = {
     # --- residual SpMV layout (ops/spmv.py) ---
     "SLU_SPMV_LAYOUT": "auto|ell|coo residual SpMV layout (ell = scatter-free padded rows)",
     "SLU_SPMV_ELL_WASTE": "max ELL padding ratio over true nnz before falling back to COO (default 4)",
+    # --- numerical trust layer (numerics/, models/gssvx.py; the
+    # reference's names and defaults) ---
+    "SLU_COND_ESTIMATE": "1 = Hager-Higham rcond estimate after every gssvx factorization (numerics/gscon.py): at most 2*SLU_COND_MAXITER+2 refinement-free solves on the resident factors, no extra factorization; off (default) = rcond stays lazy (ensure_rcond) and the condition policy never engages",
+    "SLU_COND_MAXITER": "Hager-Higham iteration cap per rcond estimate (default 5; each iteration is one forward + one transpose solve)",
+    "SLU_COND_FLOOR": "rcond refusal floor: an estimate at or below it raises SingularMatrixError (default 0 = auto: eps(refine_dtype)); only engaged when an estimate exists",
+    "SLU_COND_POLICY": "serve|stamp|refuse for ill-conditioned (above-floor) keys: serve = silent, stamp (default) = the result is a PerturbedResult, refuse = SingularMatrixError; the floor refusal applies in every mode",
+    "SLU_COND_STAMP": "ill-conditioned threshold on rcond (default 0 = auto: sqrt(eps(refine_dtype))); below it the policy mode engages and the escalation ladder climbs a rung before the first solve",
 }
 
 EXTERNAL_PREFIXES: tuple = ("SUPERLU_",)

@@ -16,9 +16,17 @@ Every entry point runs on the CUDA device unless the caller passes
 `device="cpu"`; with no card and no explicit request it raises
 (device.NoCudaDeviceError).
 
+The numerical-trust layer rides every call: each factorization
+carries its perturbation ledger (numerics/ledger.py), a result that
+rode perturbed or ill-conditioned factors comes back stamped
+(PerturbedResult), and with SLU_COND_ESTIMATE=1 the condition gate
+estimates rcond off the resident factors before the first solve and
+refuses a numerically singular system (numerics/gscon.py,
+numerics/policy.py).
+
 Not ported yet (ROADMAP queue 1): complex systems (item 10), the
-host backend (ref_multifrontal), the perturbation ledger, health
-events, the condition gate and memory watermarks.
+host backend (ref_multifrontal, item 8b), health events and memory
+watermarks (item 14; numerics/health.record is their seam).
 """
 
 from __future__ import annotations
@@ -31,7 +39,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..numerics import health
 from ..numerics.errors import InvalidInputError
+from ..numerics.gscon import ensure_rcond
+from ..numerics.ledger import (PerturbationLedger, build_ledger,
+                               stamp_perturbed)
+from ..numerics.policy import ConditionPolicy, cond_estimate_enabled
 from ..ops import batched
 from ..options import ColPerm, Fact, IterRefine, Options, Trans
 from ..plan import plan as plan_mod
@@ -58,6 +71,12 @@ class LUFactorization:
                                            repr=False, compare=False)
     cache_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
+    # numerical-trust fields (numerics/): the Hager-Higham rcond
+    # estimate (None until numerics.gscon.ensure_rcond caches it;
+    # replace copies carry a computed value forward) and the tiny-pivot
+    # perturbation ledger factorize() builds
+    rcond: Optional[float] = None
+    ledger: Optional[PerturbationLedger] = None
 
     @property
     def n(self) -> int:
@@ -128,8 +147,16 @@ def factorize(a: CSRMatrix, options: Options | None = None,
     stats.lu_bytes = stats.lu_nnz * fdt.itemsize
     stats.note_factor_event(tiny_pivots=device_lu.tiny_pivots,
                             dtype=options.factor_dtype)
-    return LUFactorization(plan=plan, device_lu=device_lu, a=a,
-                           stats=stats, options=options)
+    lu = LUFactorization(plan=plan, device_lu=device_lu, a=a,
+                         stats=stats, options=options)
+    # the perturbation ledger: free on a clean factorization (the O(n)
+    # diagonal gather runs only when K1 counted a replaced pivot)
+    lu.ledger = build_ledger(lu)
+    health.record("factor", tiny_pivots=int(device_lu.tiny_pivots),
+                  dtype=options.factor_dtype,
+                  perturbation=(lu.ledger.to_dict() if lu.ledger.perturbed
+                                else None))
+    return lu
 
 
 def _solve_factored(lu: LUFactorization, b_factor_order: np.ndarray):
@@ -371,25 +398,107 @@ def _gssvx_impl(options, a, b, stats, lu, dev, user_perm_r,
     else:
         lu = factorize(a, options, stats=stats, device=dev,
                        user_perm_r=user_perm_r, user_perm_c=user_perm_c)
+    # condition gate BEFORE the first solve: refuse numerically
+    # singular factors (typed, never a garbage solve) and pre-climb the
+    # ladder for ill-conditioned keys under SLU_COND_ESTIMATE=1
+    lu = _condition_gate(options, a, lu, stats, dev)
     x = solve(lu, b, stats=stats)
     # precision-escalation ladder (precision/policy.py): when a
     # low-precision factor fails its refinement contract
     # (cond(A)·eps_factor ≥ 1: berr stagnates far above the refine
     # class), re-factor one rung up; the plan is value-identical
-    # across rungs, so it is reused outright.  Terminates: eps(factor)
-    # strictly decreases toward the refine_dtype ceiling.
+    # across rungs, so it is reused outright.  Each climb is a health
+    # event labelled with the signal that fired.  Terminates:
+    # eps(factor) strictly decreases toward the refine_dtype ceiling.
     from ..precision.policy import next_factor_dtype
-    while _should_escalate(options, lu, stats):
+    while True:
+        trigger = _escalation_trigger(options, lu, stats)
+        if trigger is None:
+            break
         cur = lu.effective_options.factor_dtype
         nxt = next_factor_dtype(cur, ceiling=options.refine_dtype)
         if nxt is None:
             break
         stats.escalations += 1
+        health.record("escalation", berr=stats.berr, factor_dtype=cur,
+                      refine_dtype=options.refine_dtype, to_dtype=nxt,
+                      trigger=trigger)
         lu = factorize(a, options.replace(factor_dtype=nxt),
                        plan=lu.plan, stats=stats, device=dev,
                        _phase="FACT_ESC")
         x = solve(lu, b, stats=stats)
-    return x, lu, stats
+    # re-gate after a berr-driven escalation: the rcond of the
+    # ESCALATED handle is the one the policy and the stamp describe;
+    # free when none ran (the rcond is cached on the handle)
+    lu2 = _condition_gate(options, a, lu, stats, dev)
+    if lu2 is not lu:
+        lu = lu2
+        x = solve(lu, b, stats=stats)
+    return _stamp_result(x, lu, options), lu, stats
+
+
+def _condition_gate(options, a, lu, stats, dev):
+    """Condition estimation and policy enforcement after a
+    factorization (SLU_COND_ESTIMATE=1): estimate rcond off the
+    resident factors, refuse numerically singular systems with
+    SingularMatrixError, and climb the precision ladder one rung BEFORE
+    the first solve when the key classifies ill-conditioned.
+    Terminates at the ladder ceiling like the berr ladder."""
+    if not cond_estimate_enabled():
+        return lu
+    from ..precision.policy import next_factor_dtype
+    policy = ConditionPolicy.from_env()
+    while True:
+        rcond = ensure_rcond(lu)
+        stats.rcond = rcond
+        cls = policy.enforce(rcond, options.refine_dtype)
+        if (cls != "ill" or options.fact == Fact.FACTORED
+                or not options.escalate):
+            return lu
+        cur = lu.effective_options.factor_dtype
+        nxt = next_factor_dtype(cur, ceiling=options.refine_dtype)
+        if nxt is None:
+            return lu
+        stats.escalations += 1
+        health.record("escalation", berr=stats.berr, factor_dtype=cur,
+                      refine_dtype=options.refine_dtype, to_dtype=nxt,
+                      trigger="ill_conditioned")
+        lu = factorize(a, options.replace(factor_dtype=nxt),
+                       plan=lu.plan, stats=stats, device=dev,
+                       _phase="FACT_ESC")
+
+
+def _stamp_result(x, lu, options):
+    """Label solutions that rode perturbed or ill-conditioned factors
+    (numerics/ledger.PerturbedResult, a zero-copy view); a clean
+    well-conditioned solve returns a plain ndarray."""
+    led = lu.ledger
+    rcond = lu.rcond
+    ill = False
+    if rcond is not None:
+        policy = ConditionPolicy.from_env()
+        ill = (policy.mode == "stamp"
+               and policy.classify(rcond, options.refine_dtype) == "ill")
+    if (led is not None and led.perturbed) or ill:
+        return stamp_perturbed(x, ledger=led, rcond=rcond)
+    return x
+
+
+def _escalation_trigger(options: Options, lu: LUFactorization,
+                        stats: Stats):
+    """None when the refinement contract held; otherwise the
+    health-signal label (precision/policy.classify_trigger) justifying
+    one ladder rung up.  The pivot-growth probe gathers diag(U) to the
+    host (O(n)), paid only once the berr gate has decided to
+    escalate."""
+    if not _should_escalate(options, lu, stats):
+        return None
+    from ..precision.policy import classify_trigger
+    f_eps = float(np.finfo(np.dtype(
+        lu.effective_options.factor_dtype)).eps)
+    return classify_trigger(stats.berr, stalled=stats.refine_stalled,
+                            pivot_growth=health.pivot_growth(lu),
+                            factor_eps=f_eps)
 
 
 def _should_escalate(options: Options, lu: LUFactorization,

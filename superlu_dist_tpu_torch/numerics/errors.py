@@ -14,9 +14,13 @@ the failure modes the port detects distinguishable to callers:
   StructurallySingularError the PATTERN admits no LU (empty row or
                             column) — detected at plan time, before
                             equilibration divides by a zero row max.
-
-The condition gate's SingularMatrixError comes with the gate (ROADMAP
-queue 1 item 8).
+  SingularMatrixError       the VALUES are singular to working
+                            precision (rcond below the floor, or the
+                            condition policy refuses an
+                            ill-conditioned key) — detected at factor
+                            time from the Hager-Higham estimate
+                            (numerics/gscon.py, numerics/policy.py),
+                            never from a garbage solve.
 """
 
 from __future__ import annotations
@@ -44,3 +48,12 @@ class StructurallySingularError(NumericalError, ValueError):
         self.empty_rows = tuple(int(i) for i in empty_rows)
         self.empty_cols = tuple(int(i) for i in empty_cols)
 
+
+class SingularMatrixError(NumericalError):
+    """Numerically singular (or refused as too ill-conditioned) at
+    factor time: the estimated rcond fell below the policy floor.
+    Carries the estimate so callers can log the margin."""
+
+    def __init__(self, msg: str, *, rcond: float | None = None):
+        super().__init__(msg)
+        self.rcond = rcond

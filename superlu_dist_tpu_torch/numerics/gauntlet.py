@@ -1,0 +1,212 @@
+"""The hard-matrix gauntlet: zero silent-wrong answers, machine-checked.
+
+A numerically defensive solver makes exactly one promise on hostile
+input: every outcome is HONEST.  A well-posed system solves accurately;
+a perturbed or ill-conditioned one solves behind a stamp
+(PerturbedResult); a singular, malformed or poisoned one is refused
+with a TYPED error.  The one outcome that must never occur is a plain
+unstamped result whose backward error is garbage — the silent wrong
+answer GESP's no-runtime-pivoting bet makes possible.
+
+This module generates the corpus (condition-number ladder up to ~1/eps,
+structurally singular patterns, duplicated rows, wild scaling,
+indefinite shifts, NaN/Inf poisoning, malformed shapes) and classifies
+each solve attempt into five outcomes:
+
+  accurate        plain result, berr within the accuracy class
+  stamped         a PerturbedResult label rode the answer
+  refused_typed   a NumericalError or ValueError refusal
+  silent_wrong    plain result with garbage berr       <- gate: zero
+  untyped         refusal via a generic exception      <- gate: zero
+
+The port's typed refusals are NumericalError (and its subclasses) and
+ValueError.  The reference also counts its serving layer's ServeError
+as typed and its DegradedResult as a stamp; both arrive with the
+serving stack (ROADMAP queue 1 item 14).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# an unstamped answer must be honestly accurate: well clear of both a
+# refined solve's ~eps berr and a garbage solve's ~1
+BERR_BOUND = 1e-10
+
+
+def _scaled(sp_mat, scale):
+    import scipy.sparse as sp
+    d = sp.diags(scale)
+    return (d @ sp_mat).tocsr()
+
+
+def corpus() -> list:
+    """The hard-matrix cases, each a dict:
+    {name, family, a: CSRMatrix|None, b, note}.  `a is None` marks
+    the malformed-shape cases (b carries the defect)."""
+    import scipy.sparse as sp
+
+    from ..sparse import csr_from_scipy
+    from ..utils.testmat import laplacian_2d
+
+    lap = laplacian_2d(8).to_scipy()   # n=64, well-conditioned base
+    n = lap.shape[0]
+    rng = np.random.default_rng(1515)
+    cases = []
+
+    def add(name, family, a, b=None, note=""):
+        if b is None and a is not None:
+            xt = rng.standard_normal(a.n)
+            b = a.to_scipy() @ xt
+        cases.append({"name": name, "family": family, "a": a,
+                      "b": b, "note": note})
+
+    # condition-number ladder: row scaling with a logspace spread
+    # drives kappa_1 from ~1e2 (the base Laplacian) toward 1/eps.
+    # Equilibration undoes a pure diagonal scaling, so the hard cases
+    # compose the scaling with the Laplacian's own spectrum.
+    add("kappa_base", "kappa", csr_from_scipy(lap),
+        note="kappa ~ 1e2 baseline")
+    for dec in (6, 10, 14):
+        scale = np.logspace(0.0, float(dec), n)
+        add(f"kappa_1e{dec}", "kappa",
+            csr_from_scipy(_scaled(lap, scale)),
+            note=f"row-scaled Laplacian, kappa ~ 1e{dec + 2}")
+    # near 1/eps: beyond f64 rescue — policy must refuse or stamp
+    scale = np.logspace(0.0, 16.0, n)
+    add("kappa_inv_eps", "kappa",
+        csr_from_scipy(_scaled(lap, scale)),
+        note="kappa ~ 1/eps(f64): not one trustworthy digit")
+
+    # structural singularity: empty row / empty column
+    z = lap.tolil(copy=True)
+    z[n // 2, :] = 0.0
+    add("zero_row", "structural", csr_from_scipy(z.tocsr()),
+        b=np.ones(n), note="row n/2 zeroed")
+    z = lap.tolil(copy=True)
+    z[:, n // 3] = 0.0
+    add("zero_col", "structural", csr_from_scipy(z.tocsr()),
+        b=np.ones(n), note="column n/3 zeroed")
+
+    # numerically singular: duplicated rows (full structure)
+    dense = np.asarray(lap.todense())
+    dense[5, :] = dense[4, :]
+    add("duplicated_rows", "singular",
+        csr_from_scipy(sp.csr_matrix(dense)), b=np.ones(n),
+        note="row 5 := row 4 exactly")
+
+    # wild scaling: entries spanning +-1e150 (equilibration's job)
+    scale = np.where(np.arange(n) % 2 == 0, 1e150, 1e-150)
+    add("wild_scaling", "scaling",
+        csr_from_scipy(_scaled(lap, scale)),
+        note="rows scaled +-1e150; laqgs must tame it")
+
+    # indefinite: shifted Laplacian — the shift sits inside the
+    # spectrum, so eigenvalues straddle zero and GESP's diagonal
+    # pivots meet genuine sign changes (the real analog of the
+    # Helmholtz problem; testmat.helmholtz_2d is its complex twin)
+    # (not 4.0: lambda_k + lambda_{9-k} = 4 exactly for the k=8
+    # discrete Laplacian, which would make the shifted matrix
+    # SINGULAR rather than indefinite)
+    add("indefinite", "indefinite",
+        csr_from_scipy((lap - 3.7 * sp.eye(n)).tocsr()),
+        note="shift 3.7 inside the Laplacian spectrum (0, 8)")
+
+    # poisoned values: typed front-door refusals, never a solve
+    bad = lap.copy().astype(np.float64)
+    bad.data = bad.data.copy()
+    bad.data[0] = np.nan
+    add("nan_poisoned_a", "poisoned", csr_from_scipy(bad),
+        b=np.ones(n), note="NaN in A")
+    binf = np.ones(n)
+    binf[3] = np.inf
+    add("inf_poisoned_b", "poisoned", csr_from_scipy(lap), b=binf,
+        note="Inf in b")
+
+    # malformed shapes (a present, b wrong)
+    add("dim_mismatch", "malformed", csr_from_scipy(lap),
+        b=np.ones(n + 1), note="b longer than n")
+    add("empty_rhs", "malformed", csr_from_scipy(lap),
+        b=np.zeros((n, 0)), note="zero-column b")
+    return cases
+
+
+def _berr(a, x, b) -> float:
+    """Normwise backward error of a claimed solution (host, oracle-
+    side: scipy spmv, independent of the solver's own refinement
+    accounting)."""
+    x = np.asarray(x, dtype=np.float64).reshape(-1)
+    b = np.asarray(b, dtype=np.float64).reshape(-1)
+    if not np.all(np.isfinite(x)):
+        return float("inf")
+    sp_a = a.to_scipy()
+    r = np.abs(sp_a @ x - b).max()
+    den = (float(np.abs(sp_a).sum(axis=1).max()) * np.abs(x).max()
+           + np.abs(b).max())
+    return float(r / den) if den > 0 else float(r)
+
+
+def classify(case: dict, run) -> dict:
+    """Run one case through `run(a, b) -> x` and classify the outcome.
+    Exception taxonomy: NumericalError (and its subclasses) and
+    ValueError count as TYPED refusals; anything else is the untyped
+    failure the gate forbids."""
+    from .errors import NumericalError
+    from .ledger import PerturbedResult
+    a, b = case["a"], case["b"]
+    rec = {"name": case["name"], "family": case["family"],
+           "note": case["note"]}
+    try:
+        x = run(a, b)
+    except (NumericalError, ValueError) as e:
+        rec.update(outcome="refused_typed",
+                   error=type(e).__name__, detail=str(e)[:160])
+        return rec
+    except Exception as e:  # noqa: BLE001 — the taxonomy's catch-all
+        rec.update(outcome="untyped", error=type(e).__name__,
+                   detail=str(e)[:160])
+        return rec
+    berr = _berr(a, x, b)
+    stamped = isinstance(x, PerturbedResult)
+    rec["berr"] = None if np.isinf(berr) else float(berr)
+    if stamped:
+        rec["outcome"] = "stamped"
+        led = getattr(x, "ledger", None)
+        if led is not None:
+            rec["perturbation"] = led.to_dict()
+        rc = getattr(x, "rcond", None)
+        if rc is not None:
+            rec["rcond"] = float(rc)
+    elif berr <= BERR_BOUND:
+        rec["outcome"] = "accurate"
+    else:
+        rec["outcome"] = "silent_wrong"
+    return rec
+
+
+def run_gauntlet(run=None) -> tuple:
+    """Drive the whole corpus; returns (case records, summary).  `run`
+    defaults to the one-call driver on the CUDA card under the ambient
+    env (set SLU_COND_ESTIMATE=1 to put the condition policy in force).
+    The summary's gate passes iff there are zero silent-wrong answers
+    and zero untyped failures — the robustness bar, not a performance
+    one."""
+    if run is None:
+        from ..models.gssvx import gssvx
+
+        def run(a, b):
+            x, _, _ = gssvx(None, a, b)
+            return x
+
+    records = [classify(c, run) for c in corpus()]
+    counts: dict = {}
+    for r in records:
+        counts[r["outcome"]] = counts.get(r["outcome"], 0) + 1
+    gate = {
+        "silent_wrong": counts.get("silent_wrong", 0),
+        "untyped": counts.get("untyped", 0),
+        "passed": (counts.get("silent_wrong", 0) == 0
+                   and counts.get("untyped", 0) == 0),
+    }
+    summary = {"cases": len(records), "counts": counts, "gate": gate}
+    return records, summary

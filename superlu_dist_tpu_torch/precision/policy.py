@@ -6,7 +6,8 @@ The reference ships mixed precision as a dedicated expert driver
 (`psgssvx_d2`, SRC/psgssvx_d2.c:516: factor in single, refine with a
 double residual) and leaves the "what if single wasn't enough"
 decision to the caller.  models/gssvx.py climbs one rung of the
-ladder below per failed contract (cond(A)·eps_factor < 1).
+ladder below per failed contract (cond(A)·eps_factor < 1), and
+`classify_trigger` names the health signal behind each climb.
 """
 
 from __future__ import annotations
@@ -73,3 +74,28 @@ def next_factor_dtype(current: str,
             if best is None or e > _eps(best):
                 best = d
     return best if best is not None else ceiling
+
+
+# -- health-signal classification ------------------------------------
+
+# pivot growth beyond 1/(16·eps_factor) means the GESP factorization
+# amplified entries to within 4 bits of total significand loss
+# (numerics/health.pivot_growth watches it at runtime)
+_PIVOT_GROWTH_SLACK = 1.0 / 16.0
+
+
+def classify_trigger(berr: float, *, stalled: bool = False,
+                     pivot_growth: Optional[float] = None,
+                     factor_eps: Optional[float] = None) -> str:
+    """Name the health signal that justified an escalation the caller
+    has already decided on (models/gssvx._escalation_core holds the
+    berr gate; this orders the EXPLANATION): 'nonfinite',
+    'pivot_growth', 'refine_stalled' or 'berr_plateau'."""
+    if not np.isfinite(berr):
+        return "nonfinite"
+    if (pivot_growth is not None and factor_eps
+            and pivot_growth * factor_eps > _PIVOT_GROWTH_SLACK):
+        return "pivot_growth"
+    if stalled:
+        return "refine_stalled"
+    return "berr_plateau"

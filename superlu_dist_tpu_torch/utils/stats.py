@@ -43,6 +43,9 @@ class Stats:
     lu_bytes: int = 0
     # one {tiny_pivots, dtype} record per factorize() under this Stats
     factor_events: list = dataclasses.field(default_factory=list)
+    # condition estimate of the LAST factorization served through this
+    # run (numerics/gscon.ensure_rcond), None when not estimated
+    rcond: float | None = None
 
     @contextlib.contextmanager
     def timer(self, phase: str):
@@ -80,6 +83,8 @@ class Stats:
             lines.append(line)
         lines.append(f"  tiny pivots replaced: {self.tiny_pivots}")
         lines.append(f"  refinement steps:     {self.refine_steps}")
+        if self.rcond is not None:
+            lines.append(f"  estimated rcond:      {self.rcond:.2e}")
         lines.append(f"  backward error:       {self.berr:.3e}")
         if self.escalations:
             lines.append(f"  precision escalations: {self.escalations}")

@@ -10,6 +10,7 @@ kernels) every test here skips with its reason.  On the card:
 port's machine need not have.)
 """
 
+import dataclasses
 import shutil
 
 import numpy as np
@@ -689,3 +690,87 @@ def test_factorize_uploads_the_schedule_once(card):
     sched = batched.get_schedule(lu.plan)
     assert all(list(g._dev) == [str(card)] for g in sched.groups)
     assert lu.device == card
+
+
+# --------------------------------------------------------------------
+# the numerical-trust layer on the card: the rcond estimate rides the
+# handle's solve graphs (K3 on the NOTRANS lane), the ledger reads K1's
+# tiny-pivot count and the diagonal of U on the device
+# --------------------------------------------------------------------
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_rcond_on_card_matches_cpu(card, monkeypatch, staged):
+    """The estimate on the card equals the CPU's to 1e-8 relative; the
+    first estimate captures only the TRANS lane's solve graphs (the
+    NOTRANS ones exist after one solve), the second captures none, and
+    K3 launches inside it."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.numerics import gscon
+    from superlu_dist_tpu_torch.ops import graphs, lsum
+    from superlu_dist_tpu_torch.utils.testmat import convection_diffusion_2d
+    _arm(monkeypatch, staged)
+    a = convection_diffusion_2d(20)
+    lu_c = st.factorize(a, device=card)
+    lu_h = st.factorize(a, device="cpu")
+    st.solve(lu_c, np.ones(a.n))            # the NOTRANS graphs
+    g0 = graphs.graph_count(lu_c.device_lu)
+    lsum.lsum_panel.launches = 0
+    r_card = gscon.estimate_rcond(lu_c)
+    assert lsum.lsum_panel.launches > 0
+    g1 = graphs.graph_count(lu_c.device_lu)
+    assert g1 > g0
+    assert gscon.estimate_rcond(lu_c) == r_card
+    assert graphs.graph_count(lu_c.device_lu) == g1
+    r_cpu = gscon.estimate_rcond(lu_h)
+    assert 0.0 < r_cpu < 1.0
+    assert abs(r_card - r_cpu) <= 1e-8 * r_cpu
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_ledger_on_card_matches_plain_k1(card, monkeypatch, dtype):
+    """A matrix with duplicated rows: the ledger of the card's
+    factorization (K1, captured graphs) has the count, threshold and
+    original-column locations of the same factorization run eagerly on
+    the card with K1's plain version."""
+    import scipy.sparse as sp
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.numerics.ledger import build_ledger
+    from superlu_dist_tpu_torch.ops import batched, dense_lu, panel_lu
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_2d
+    dense = np.asarray(laplacian_2d(12).to_scipy().todense())
+    dense[[5, 40, 77], :] = dense[[4, 39, 76], :]
+    a = st.csr_from_scipy(sp.csr_matrix(dense))
+    opts = st.Options(factor_dtype=dtype)
+    panel_lu.partial_lu_batch.launches = 0
+    lu_k = st.factorize(a, opts, device=card)
+    assert panel_lu.partial_lu_batch.launches > 0
+    led_k = lu_k.ledger
+    monkeypatch.setattr(batched, "partial_lu_batch",
+                        dense_lu.partial_lu_batch)
+    d = batched.factorize_device(lu_k.plan, lu_k.plan.scaled_values(a),
+                                 dtype, card, eager=True)
+    led_p = build_ledger(dataclasses.replace(lu_k, device_lu=d))
+    assert led_k.perturbed and led_k.count == d.tiny_pivots
+    assert led_k == led_p and len(led_k.locations) >= 3
+
+
+def test_gated_gssvx_on_card(card, monkeypatch):
+    """gssvx with the gate on: a plain result at berr ≤ 64·eps, the
+    rcond of the CPU run, and a second gated solve on the same handle
+    (Fact.FACTORED) that captures no graph and estimates nothing."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched, graphs
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
+    monkeypatch.setenv("SLU_COND_ESTIMATE", "1")
+    a = laplacian_3d(10)
+    b = a.to_scipy() @ np.random.default_rng(2).standard_normal(a.n)
+    x, lu, stats = st.gssvx(st.Options(), a, b)
+    _, _, s_cpu = st.gssvx(st.Options(), a, b, device="cpu")
+    assert type(x) is np.ndarray and lu.device.type == "cuda"
+    assert stats.berr <= 64 * np.finfo(np.float64).eps
+    assert abs(stats.rcond - s_cpu.rcond) <= 1e-8 * s_cpu.rcond
+    owners = (lu.device_lu, batched.get_schedule(lu.plan))
+    g0 = [graphs.graph_count(o) for o in owners]
+    x2, lu2, s2 = st.gssvx(st.Options(fact=st.Fact.FACTORED), a, b, lu=lu)
+    assert [graphs.graph_count(o) for o in owners] == g0
+    assert s2.rcond == stats.rcond and np.allclose(x2, x, rtol=1e-12)
