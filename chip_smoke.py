@@ -89,15 +89,41 @@ Phases, each of which raises (non-zero exit) on failure:
                  (e) random_unsymmetric(150, density=0.03) under
                  RowPerm.NOROWPERM, nrhs 3: a typed refusal or a stamped
                  result;
- 10. the kernels line, the card line, and the contract line last.  Each
+ 10. drivers  — the command lines and readers (drivers/, utils/io.py) and
+                 the host backend, files in a temporary directory, each
+                 `main`'s standard output captured, launch counts set to
+                 0 just before each drive and read just after:
+                 (a) laplacian_3d(48) f64 written with write_binary,
+                 `pddrive.main([file])` on the card: rc 0, inf-norm error
+                 ≤ 1e-10 and relative residual ≤ 1e-13 (parsed from its
+                 output), K1–K3 launches each > 0, its host wall and the
+                 read wall apart;
+                 (b) the same file with `--fused --dtype float32 -q`: rc
+                 0, launches > 0, the FACT_ESC reruns (0 expected);
+                 (c) convection_diffusion_2d(200) f64 as MatrixMarket
+                 (scipy.io.mmwrite, read by read_mm), `-s 4 --trans
+                 TRANS`: rc 0, K1 and K2 launched (the TRANS lane's
+                 forward step runs no K3), the read wall;
+                 (d) the same matrix as Harwell-Boeing (scipy.io.hb_write,
+                 read by read_hb) through gssvx with backend="host" and
+                 backend="torch" on one b: x and diag(U) agree to 1e-10
+                 relative, equal tiny-pivot counts, the host factor wall
+                 beside the card's;
+                 (e) `pdtest.main([])` (laplacian_2d(10), both backends):
+                 0 failures, its wall;
+ 11. the kernels line, the card line, and the contract line last.  Each
      kernel's `launches` is the sum of its launches in phase 4's main
-     path (`launches_main`) and in phase 9's drive (a) (`launches_gate`).
+     path (`launches_main`), in phase 9's drive (a) (`launches_gate`)
+     and in phase 10's drives (a) and (b) (`launches_drivers`).
 Everything is made from fixed seeds.  Details go to
 chiprun_out/chip_smoke.json.
 """
 
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -782,6 +808,173 @@ def gate_phase(a48):
 
 
 # --------------------------------------------------------------------
+# the command lines, the readers and the host backend
+# --------------------------------------------------------------------
+
+def _main_captured(main, argv, watch_read=None):
+    """(rc, stdout text, host wall s, read wall s or None) of one
+    driver `main(argv)`; `watch_read` is the driver module whose
+    `read_matrix` is timed apart for this call."""
+    read_s = []
+    orig = None
+    if watch_read is not None:
+        orig = watch_read.read_matrix
+
+        def timed(path, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(path, **kw)
+            finally:
+                read_s.append(time.perf_counter() - t0)
+        watch_read.read_matrix = timed
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            w, rc = _synced(lambda: main(argv))
+    finally:
+        if orig is not None:
+            watch_read.read_matrix = orig
+    return rc, buf.getvalue(), w, (read_s[0] if read_s else None)
+
+
+def _parsed(out):
+    num = r"([-+0-9.eEinfa]+)"
+    e = re.search(r"inf-norm error: " + num, out)
+    r = re.search(r"relative residual: " + num, out)
+    return (float(e.group(1)) if e else float("nan"),
+            float(r.group(1)) if r else float("nan"))
+
+
+def _log_drive(key, rec, card):
+    log(f"[drivers {key}] " + json.dumps(
+        dict({f: v for f, v in rec.items() if f != "output"}, card=card),
+        default=str))
+
+
+def _pddrive_run(key, label, argv, pddrive, card,
+                 need=("panel_lu", "ea_scatter", "lsum")):
+    """One pddrive drive, launch counts zeroed just before and read just
+    after, logged; raises on a non-zero exit or a kernel of `need`
+    never launched."""
+    _zero_launches()
+    rc, out, wall, read_s = _main_captured(pddrive.main, argv,
+                                           watch_read=pddrive)
+    launches = _launches()
+    err, relres = _parsed(out)
+    rec = {"label": label, "argv": [os.path.basename(a) if os.sep in a
+                                    else a for a in argv],
+           "rc": rc, "wall_s": wall, "read_s": read_s,
+           "inf_norm_error": err, "relative_residual": relres,
+           "launches": launches, "output": out}
+    _log_drive(key, rec, card)
+    if rc != 0:
+        raise RuntimeError(f"drivers {label}: rc {rc}\n{out}")
+    for k in need:
+        if launches[k] <= 0:
+            raise RuntimeError(f"drivers {label}: {k} never launched")
+    return rec
+
+
+def drivers_phase():
+    """Phase 10 (see the module docstring); raises on any failed check.
+    Returns (records, launches of drives (a) and (b) summed)."""
+    import tempfile
+    import numpy as np
+    import scipy.io
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.drivers import pddrive, pdtest
+    from superlu_dist_tpu_torch.numerics import health
+    from superlu_dist_tpu_torch.utils import io as sio, testmat
+    card = card_line()
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) pddrive on a binary file, f64
+        p48 = os.path.join(tmp, "lap48.bin")
+        sio.write_binary(p48, testmat.laplacian_3d(48))
+        ra = _pddrive_run("a", "f64 laplacian_3d(48) .bin", [p48],
+                          pddrive, card)
+        if not (ra["inf_norm_error"] <= 1e-10
+                and ra["relative_residual"] <= 1e-13):
+            raise RuntimeError(f"drivers (a): {ra['output']}")
+        recs["a"] = ra
+        # (b) the fused solver, float32 factor; escalations counted at
+        # the health seam
+        esc = []
+        orig_record = health.record
+
+        def record(event, **fields):
+            if event == "escalation":
+                esc.append(fields)
+            return orig_record(event, **fields)
+        health.record = record
+        try:
+            rb = _pddrive_run("b", "fused f32 laplacian_3d(48) .bin",
+                              [p48, "--fused", "--dtype", "float32", "-q"],
+                              pddrive, card)
+        finally:
+            health.record = orig_record
+        rb["fact_esc"] = len(esc)
+        log(f"[drivers b] fact_esc {len(esc)}")
+        if not rb["relative_residual"] <= 1e-13:
+            raise RuntimeError(f"drivers (b): {rb['output']}")
+        recs["b"] = rb
+        os.remove(p48)
+        # (c) MatrixMarket, TRANS, 4 right-hand sides; the TRANS lane's
+        # forward step is two batched products, not K3
+        acd = testmat.convection_diffusion_2d(200)
+        pmm = os.path.join(tmp, "cd200.mtx")
+        scipy.io.mmwrite(pmm, acd.to_scipy())
+        recs["c"] = _pddrive_run(
+            "c", "f64 convection_diffusion_2d(200) .mtx TRANS",
+            [pmm, "-s", "4", "--trans", "TRANS"], pddrive, card,
+            need=("panel_lu", "ea_scatter"))
+        # (d) Harwell-Boeing, host backend against the card
+        phb = os.path.join(tmp, "cd200.rua")
+        scipy.io.hb_write(phb, acd.to_scipy().tocsc())
+        t0 = time.perf_counter()
+        ahb = sio.read_hb(phb)
+        read_hb_s = time.perf_counter() - t0
+        if (ahb.to_scipy() != acd.to_scipy()).nnz:
+            raise RuntimeError("drivers (d): read_hb differs from the "
+                               "matrix written")
+        b = ahb.to_scipy() @ np.random.default_rng(10).standard_normal(
+            ahb.n)
+        wh, (xh, luh, sh) = _synced(lambda: st.gssvx(
+            st.Options(), ahb, b, backend="host"))
+        wt, (xt, lut, stt) = _synced(lambda: st.gssvx(
+            st.Options(), ahb, b, backend="torch"))
+        rel_x = float(np.max(np.abs(xh - xt)) / np.max(np.abs(xh)))
+        dh, dt = st.get_diag_u(luh), st.get_diag_u(lut)
+        rel_d = float(np.max(np.abs(dh - dt)) / np.max(np.abs(dh)))
+        recs["d"] = {"read_hb_s": read_hb_s, "n": int(ahb.n),
+                     "nnz": int(ahb.nnz),
+                     "host": {"wall_s": wh, "factor_s": sh.utime["FACT"],
+                              "solve_s": sh.utime["SOLVE"],
+                              "refine_s": sh.utime["REFINE"],
+                              "berr": sh.berr, "tiny": sh.tiny_pivots},
+                     "torch": {"wall_s": wt, "factor_s": stt.utime["FACT"],
+                               "solve_s": stt.utime["SOLVE"],
+                               "refine_s": stt.utime["REFINE"],
+                               "berr": stt.berr, "tiny": stt.tiny_pivots},
+                     "rel_x": rel_x, "rel_diag_u": rel_d}
+        _log_drive("d", recs["d"], card)
+        if not (rel_x <= 1e-10 and rel_d <= 1e-10
+                and sh.tiny_pivots == stt.tiny_pivots):
+            raise RuntimeError(f"drivers (d): {recs['d']}")
+        del luh, lut
+    # (e) the option sweep, both backends, on the card
+    rc, out, wall, _ = _main_captured(pdtest.main, [])
+    recs["e"] = {"rc": rc, "wall_s": wall, "summary": out.strip()
+                 .splitlines()[-1] if out.strip() else ""}
+    _log_drive("e", recs["e"], card)
+    if rc != 0:
+        raise RuntimeError(f"drivers (e): pdtest rc {rc}\n{out}")
+    launches = {k: ra["launches"][k] + rb["launches"][k]
+                for k in ra["launches"]}
+    return recs, launches
+
+
+# --------------------------------------------------------------------
 # kernels against their plain versions
 # --------------------------------------------------------------------
 
@@ -1121,7 +1314,7 @@ KERNELS = {
 }
 
 
-def kernels_line(res, launches, gate_launches):
+def kernels_line(res, launches, gate_launches, driver_launches):
     out = []
     for name, (src, repl) in KERNELS.items():
         rows = res[name]
@@ -1134,9 +1327,11 @@ def kernels_line(res, launches, gate_launches):
         out.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": repl,
-            "launches": int(launches[name] + gate_launches[name]),
+            "launches": int(launches[name] + gate_launches[name]
+                            + driver_launches[name]),
             "launches_main": int(launches[name]),
             "launches_gate": int(gate_launches[name]),
+            "launches_drivers": int(driver_launches[name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1245,12 +1440,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["gate"], gate_launches = gate_phase(a48)
 
+    # the command lines, the readers and the host backend
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["drivers"], driver_launches = drivers_phase()
+
     report["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
 
-    # 10. the summary lines, the contract line last
-    log(json.dumps(kernels_line(res, rec["launches"], gate_launches)))
+    # 11. the summary lines, the contract line last
+    log(json.dumps(kernels_line(res, rec["launches"], gate_launches,
+                                driver_launches)))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

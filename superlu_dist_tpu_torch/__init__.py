@@ -56,6 +56,7 @@ from .models.gssvx import (  # noqa: E402
     solve,
     warm_solve,
 )
+from .utils.io import read_matrix  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -78,6 +79,7 @@ __all__ = [
     "gssvx",
     "plan_factorization",
     "query_space",
+    "read_matrix",
     "resolve_device",
     "solve",
     "warm_solve",

@@ -105,7 +105,8 @@ def estimate_rcond(lu, anorm: float | None = None,
         max_iter = flags.env_int("SLU_COND_MAXITER", 5)
     eff = lu.effective_options
     base = eff.replace(iter_refine=IterRefine.NOREFINE)
-    # the copies share device_lu, and with it the handle's solve graphs
+    # the copies share the factors: device_lu with the handle's solve
+    # graphs, or a host handle's host_lu
     lu_n = dataclasses.replace(lu, options=base.replace(
         trans=Trans.NOTRANS))
     lu_t = dataclasses.replace(lu, options=base.replace(

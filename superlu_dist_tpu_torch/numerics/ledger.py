@@ -91,12 +91,14 @@ def strip_result_markers(x):
 
 
 def build_ledger(lu) -> PerturbationLedger:
-    """Ledger for a live factorization handle.  Reads K1's tiny-pivot
-    count; only when it is nonzero does the O(n) diagonal gather run to
+    """Ledger for a live factorization handle.  Reads the tiny-pivot
+    count (K1's on the device, the host backend's own on the host);
+    only when it is nonzero does the O(n) diagonal gather run to
     recover locations."""
     from ..models.gssvx import get_diag_u
     from ..ops.batched import _thresh_for
-    count = int(lu.device_lu.tiny_pivots)
+    src = lu.host_lu if lu.backend == "host" else lu.device_lu
+    count = int(src.tiny_pivots)
     fdt = np.dtype(lu.effective_options.factor_dtype)
     thresh = float(_thresh_for(lu.plan, fdt))
     if count == 0 or thresh == 0.0:

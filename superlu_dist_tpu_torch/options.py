@@ -179,3 +179,13 @@ class Options:
 
     def replace(self, **kw) -> "Options":
         return dataclasses.replace(self, **kw)
+
+    def describe(self) -> str:
+        """print_options_dist analog (SRC/util.c:242): one line per
+        knob, enums by name."""
+        lines = ["** Options **"]
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            v = v.name if isinstance(v, enum.Enum) else v
+            lines.append(f"  {f.name:<22s} {v}")
+        return "\n".join(lines)

@@ -774,3 +774,60 @@ def test_gated_gssvx_on_card(card, monkeypatch):
     x2, lu2, s2 = st.gssvx(st.Options(fact=st.Fact.FACTORED), a, b, lu=lu)
     assert [graphs.graph_count(o) for o in owners] == g0
     assert s2.rcond == stats.rcond and np.allclose(x2, x, rtol=1e-12)
+
+
+def _counters():
+    from superlu_dist_tpu_torch.ops import ea_scatter, lsum, panel_lu
+    return (panel_lu.partial_lu_batch, ea_scatter.ea_scatter_add,
+            lsum.lsum_panel)
+
+
+def _pddrive_on_card(path, extra, capsys):
+    """pddrive.main on the card with the launch counts set to 0 just
+    before: (rc, inf-norm error, relative residual, launches)."""
+    import re
+    from superlu_dist_tpu_torch.drivers import pddrive
+    for f in _counters():
+        f.launches = 0
+    rc = pddrive.main([path] + extra)
+    out = capsys.readouterr().out
+    err = float(re.search(r"inf-norm error: (\S+)", out).group(1))
+    res = float(re.search(r"relative residual: (\S+)", out).group(1))
+    return rc, err, res, [f.launches for f in _counters()]
+
+
+def test_pddrive_on_card(card, tmp_path, capsys):
+    from superlu_dist_tpu_torch.utils.io import write_binary
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
+    p = tmp_path / "lap10.bin"
+    write_binary(str(p), laplacian_3d(10))
+    rc, err, res, launches = _pddrive_on_card(str(p), ["-s", "2"], capsys)
+    assert rc == 0 and err <= 1e-12 and res <= 1e-14
+    assert min(launches) > 0
+
+
+def test_pddrive_fused_on_card(card, tmp_path, capsys):
+    from superlu_dist_tpu_torch.utils.io import write_binary
+    from superlu_dist_tpu_torch.utils.testmat import convection_diffusion_2d
+    p = tmp_path / "cd30.bin"
+    write_binary(str(p), convection_diffusion_2d(30))
+    rc, err, res, launches = _pddrive_on_card(
+        str(p), ["--fused", "--dtype", "float32", "-q"], capsys)
+    assert rc == 0 and err <= 1e-12 and res <= 1e-14
+    assert min(launches) > 0
+
+
+def test_host_and_torch_backends_agree_on_card(card):
+    """convection_diffusion_2d(40): the host backend and the card on
+    the same b, both refined to berr at eps."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.utils.testmat import convection_diffusion_2d
+    a = convection_diffusion_2d(40)
+    b = a.to_scipy() @ np.random.default_rng(4).standard_normal(a.n)
+    xh, luh, sh = st.gssvx(st.Options(), a, b, backend="host")
+    xt, lut, stt = st.gssvx(st.Options(), a, b, backend="torch")
+    assert luh.backend == "host" and lut.device.type == "cuda"
+    assert np.max(np.abs(xh - xt)) <= 1e-10 * np.max(np.abs(xh))
+    dh, dt = st.get_diag_u(luh), st.get_diag_u(lut)
+    assert np.max(np.abs(dh - dt)) <= 1e-10 * np.max(np.abs(dh))
+    assert sh.tiny_pivots == stt.tiny_pivots
