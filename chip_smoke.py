@@ -111,10 +111,40 @@ Phases, each of which raises (non-zero exit) on failure:
                  beside the card's;
                  (e) `pdtest.main([])` (laplacian_2d(10), both backends):
                  0 failures, its wall;
- 11. the kernels line, the card line, and the contract line last.  Each
-     kernel's `launches` is the sum of its launches in phase 4's main
-     path (`launches_main`), in phase 9's drive (a) (`launches_gate`)
-     and in phase 10's drives (a) and (b) (`launches_drivers`).
+ 11. complex  — native complex systems on helmholtz_2d(400) (n = 160,000,
+                 complex128), launch counts and their per-lane counts set
+                 to 0 just before each drive and read just after:
+                 (a) gssvx(Options(), a, b): every launch on the complex128
+                 lanes of K1–K3 (each > 0), berr ≤ 64·eps(f64);
+                 (b) the same plan refactored with a complex64 factor
+                 and complex128 refinement (SAME_PATTERN_SAME_ROWPERM):
+                 the complex64 lanes of K1 and K2 and K3's c64_c128 lane
+                 (the solves run in the promoted complex128), no
+                 escalation;
+                 (c) CONJ at nrhs 4, refactored on the same plan (K1 and
+                 K2 launched; the TRANS lane's forward step is two batched
+                 products);
+                 (d) the fused solver in complex128, and with a complex64
+                 factor and complex128 refinement (its sweeps run K3's
+                 c64_c64 lane), at nrhs 1 and 64 as phase 6 runs it
+                 (one later call), every launch on the factor's lanes;
+                 (e) pddrive on the matrix written as MatrixMarket: rc 0,
+                 inf-norm error ≤ 1e-10, relative residual ≤ 1e-13;
+                 (f) the host backend against the card on
+                 helmholtz_2d(100): x and diag(U) to 1e-10, equal tiny
+                 counts;
+                 then each complex lane of K1–K3 against its plain version
+                 at complex64 and complex128, at the complex schedule's
+                 most frequent bucket and its largest (K1 also at k=48's
+                 largest shape, (2, 6144, 512)), timed as phase 3 times
+                 the real lanes (a complex multiply-add counts as 8 real
+                 operations in the bound);
+ 12. the kernels line, the card line, and the contract line last.  Each
+     real kernel's `launches` is the sum of its launches in phase 4's
+     main path (`launches_main`), in phase 9's drive (a)
+     (`launches_gate`) and in phase 10's drives (a) and (b)
+     (`launches_drivers`); each complex lane's is its launches in phase
+     11's drives (a) and (b) and the first fused calls of (d).
 Everything is made from fixed seeds.  Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -137,10 +167,13 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # the tensor cores (the larger float64 rate, so the bound stays a
 # lower bound)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "complex64": 67e12,
+              "complex128": 67e12}
 # kernel vs plain version, max |diff| / max |plain|: rounding order
-# differs (substitution vs Newton inverses, atomics vs ordered adds)
-TOL = {"float32": 1e-4, "float64": 1e-10}
+# differs (substitution vs Newton inverses, atomics vs ordered adds);
+# a complex lane is held to its real precision's tolerance
+TOL = {"float32": 1e-4, "float64": 1e-10, "complex64": 1e-4,
+       "complex128": 1e-10}
 BERR_MAX = 64 * 2.220446049250313e-16
 
 
@@ -239,28 +272,38 @@ def counters():
             "lsum": lsum.lsum_panel}
 
 
-def drive(label, options, a, lu=None, seed=0):
+def drive(label, options, a, lu=None, seed=0, nrhs=1,
+          need=("panel_lu", "ea_scatter", "lsum")):
     """One gssvx call through the user entry point, with the kernel
-    launch counts set to 0 just before it and read just after."""
+    launch counts (and their per-lane counts) set to 0 just before it
+    and read just after; each kernel of `need` must have launched.  A
+    complex matrix gets a complex solution to recover."""
     import numpy as np
     import torch
     import superlu_dist_tpu_torch as st
-    xtrue = np.random.default_rng(seed).standard_normal(a.n)
-    b = a.to_scipy() @ xtrue
+    rng = np.random.default_rng(seed)
+    shape = a.n if nrhs == 1 else (a.n, nrhs)
+    xtrue = rng.standard_normal(shape)
+    if np.iscomplexobj(a.data):
+        xtrue = xtrue + 1j * rng.standard_normal(shape)
+    asp = a.to_scipy()
+    op = {st.Trans.NOTRANS: asp, st.Trans.TRANS: asp.T,
+          st.Trans.CONJ: asp.conj().T}[options.trans]
+    b = op @ xtrue
     cs = counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in cs.values():
-        f.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     x, lu, stats = st.gssvx(options, a, b, lu=lu)
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in cs.items()}
+    lanes = _lanes()
     relerr = float(np.linalg.norm(x - xtrue) / np.linalg.norm(xtrue))
     u = stats.utime
     rec = {
         "label": label, "n": int(a.n), "nnz": int(a.nnz),
-        "factor_dtype": options.factor_dtype,
+        "factor_dtype": lu.effective_options.factor_dtype,
         "wall_s": wall,
         "plan_s": sum(u[p] for p in ("EQUIL", "ROWPERM", "COLPERM",
                                      "ETREE", "SYMBFACT", "DIST")),
@@ -274,16 +317,16 @@ def drive(label, options, a, lu=None, seed=0):
         "tiny_pivots": stats.tiny_pivots,
         "factor_flops": float(lu.plan.factor_flops),
         "groups": len(lu.device_lu.schedule.groups),
-        "launches": launches,
+        "launches": launches, "lanes": lanes,
         "result_type": type(x).__name__, "rcond": stats.rcond,
     }
     log(f"[{label}] " + json.dumps(rec))
-    if not np.all(np.isfinite(x)) or x.shape != (a.n,):
+    if not np.all(np.isfinite(x)) or x.shape != xtrue.shape:
         raise RuntimeError(f"{label}: bad solution")
     if not stats.berr <= BERR_MAX:
         raise RuntimeError(f"{label}: berr {stats.berr} > {BERR_MAX}")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in need:
+        if launches[k] <= 0:
             raise RuntimeError(f"{label}: kernel {k} was never launched")
     return lu, rec
 
@@ -487,6 +530,12 @@ def _launches():
 def _zero_launches():
     for f in counters().values():
         f.launches = 0
+        f.lanes.clear()
+
+
+def _lanes():
+    """Each kernel's launches per lane since the counts were zeroed."""
+    return {k: dict(f.lanes) for k, f in counters().items()}
 
 
 def fused_phase(label, a, plan, dtype, rounds=3):
@@ -518,7 +567,7 @@ def fused_phase(label, a, plan, dtype, rounds=3):
         g0 = ctx.graph_count()
         _zero_launches()
         wall, out = _synced(lambda: step(vals, b))
-        return wall, out, ctx.graph_count() - g0, _launches()
+        return wall, out, ctx.graph_count() - g0, _launches(), _lanes()
 
     def check(out, launches, xtrue, what):
         x, berr = out[0], float(out[1])
@@ -535,26 +584,30 @@ def fused_phase(label, a, plan, dtype, rounds=3):
         return float((x - xtrue).abs().max() / xtrue.abs().max())
 
     for R in (1, 64):
-        xtrue_np = np.random.default_rng(20 + R).standard_normal((a.n, R))
+        rng = np.random.default_rng(20 + R)
+        xtrue_np = rng.standard_normal((a.n, R))
+        if np.iscomplexobj(a.data):
+            xtrue_np = xtrue_np + 1j * rng.standard_normal((a.n, R))
         b_np = a.to_scipy() @ xtrue_np
         b = torch.from_numpy(b_np).to(dev)
         xtrue = torch.from_numpy(xtrue_np).to(dev)
         torch.cuda.synchronize()
         m0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
         torch.cuda.reset_peak_memory_stats()
-        first_s, out, captured, launches = call(b)
+        first_s, out, captured, launches, lanes = call(b)
         mem = {"peak_bytes": torch.cuda.max_memory_allocated() - m0,
                "resident_bytes": torch.cuda.memory_allocated() - m0,
                "reserved_bytes": torch.cuda.memory_reserved() - r0}
         relerr = check(out, launches, xtrue, "first call")
         r = {"first_s": first_s, "first_captured": captured,
-             "first_launches": launches, "memory": mem}
+             "first_launches": launches, "first_lanes": lanes,
+             "memory": mem}
         fused, host, later = [], [], []
         for k in range(rounds):
             for kind in (("fused", "gssvx") if k % 2 == 0
                          else ("gssvx", "fused")):
                 if kind == "fused":
-                    w, out, captured, launches = call(b)
+                    w, out, captured, launches, _ = call(b)
                     if captured:
                         raise RuntimeError(f"{label}: a later call captured "
                                            f"{captured} graphs")
@@ -975,12 +1028,142 @@ def drivers_phase():
 
 
 # --------------------------------------------------------------------
+# native complex systems
+# --------------------------------------------------------------------
+
+# helmholtz_2d(400): the shifted 2D Laplacian a frequency-domain solver
+# factors, n = 160,000, complex128
+COMPLEX_K = 400
+# K1's largest shape at k=48, run by the complex lanes too
+K1_LARGEST_K48 = (2, 6144, 512)
+# the complex lanes of each kernel (the suffixes of their launchers)
+COMPLEX_LANES = {"panel_lu": ("c64", "c128"), "ea_scatter": ("c64", "c128"),
+                 "lsum": ("c64_c64", "c128_c128", "c64_c128")}
+
+
+def _check_lanes(label, lanes, want):
+    """Every launch of the drive on the lanes of `want` (kernel -> set),
+    each of them launched."""
+    got = {k: {ln for ln, c in v.items() if c > 0} for k, v in lanes.items()}
+    if got != want:
+        raise RuntimeError(f"{label}: lanes {lanes}, expected {want}")
+
+
+def complex_phase():
+    """Phase 11 (see the module docstring); raises on any failed check.
+    Returns (records, the complex kernel checks, the launches per lane
+    of drives (a) and (b) summed)."""
+    import gc
+    import tempfile
+    import numpy as np
+    import scipy.io
+    import torch
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.drivers import pddrive
+    from superlu_dist_tpu_torch.utils import testmat
+    card = card_line()
+    a = testmat.helmholtz_2d(COMPLEX_K)
+    recs = {}
+    same = st.Fact.SAME_PATTERN_SAME_ROWPERM
+    # (a) the user entry point in complex128
+    lu, recs["a"] = drive(f"c128 helmholtz_2d({COMPLEX_K})", st.Options(),
+                          a, seed=30)
+    _check_lanes("complex (a)", recs["a"]["lanes"],
+                 {"panel_lu": {"c128"}, "ea_scatter": {"c128"},
+                  "lsum": {"c128_c128"}})
+    # (b) a complex64 factor, complex128 refinement (gssvx solves in the
+    # promoted dtype of the factors and the right-hand side: complex128)
+    _, recs["b"] = drive(
+        f"c64 factor + c128 refine helmholtz_2d({COMPLEX_K})",
+        st.Options(fact=same, factor_dtype="float32"), a, lu=lu, seed=31)
+    _check_lanes("complex (b)", recs["b"]["lanes"],
+                 {"panel_lu": {"c64"}, "ea_scatter": {"c64"},
+                  "lsum": {"c64_c128"}})
+    if recs["b"]["escalations"]:
+        raise RuntimeError("complex (b): the complex64 factor escalated")
+    # (c) CONJ at nrhs 4; the TRANS lane's forward step is two batched
+    # products, not K3
+    _, recs["c"] = drive(f"c128 CONJ nrhs 4 helmholtz_2d({COMPLEX_K})",
+                         st.Options(fact=same, trans=st.Trans.CONJ), a,
+                         lu=lu, seed=32, nrhs=4,
+                         need=("panel_lu", "ea_scatter"))
+    # (d) refinement on the device, in complex128 and with a complex64
+    # factor and complex128 refinement, whose sweeps run in the factor's
+    # dtype (K3's c64_c64 lane)
+    recs["d"] = [fused_phase(f"{w} helmholtz_2d({COMPLEX_K})", a, lu.plan,
+                             dt, rounds=1)
+                 for w, dt in (("c128", "complex128"),
+                               ("c64 factor + c128 refine", "complex64"))]
+    for rd, ln in zip(recs["d"], ("c128", "c64")):
+        for R, r in rd["nrhs"].items():
+            _check_lanes(f"complex (d) {ln} nrhs {R}", r["first_lanes"],
+                         {"panel_lu": {ln}, "ea_scatter": {ln},
+                          "lsum": {f"{ln}_{ln}"}})
+    plan = lu.plan
+    del lu
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) pddrive on the matrix written as MatrixMarket
+    with tempfile.TemporaryDirectory() as tmp:
+        pmm = os.path.join(tmp, f"helm{COMPLEX_K}.mtx")
+        t0 = time.perf_counter()
+        scipy.io.mmwrite(pmm, a.to_scipy())
+        write_s = time.perf_counter() - t0
+        re_ = _pddrive_run("complex e", f"c128 helmholtz_2d({COMPLEX_K}) "
+                           ".mtx", [pmm], pddrive, card)
+    re_["write_s"] = write_s
+    if not (re_["inf_norm_error"] <= 1e-10
+            and re_["relative_residual"] <= 1e-13
+            and "dtype=complex128" in re_["output"]):
+        raise RuntimeError(f"complex (e): {re_['output']}")
+    recs["e"] = re_
+    # (f) the host backend against the card
+    a100 = testmat.helmholtz_2d(100)
+    rng = np.random.default_rng(33)
+    b = a100.to_scipy() @ (rng.standard_normal(a100.n)
+                           + 1j * rng.standard_normal(a100.n))
+    wh, (xh, luh, sh) = _synced(lambda: st.gssvx(st.Options(), a100, b,
+                                                 backend="host"))
+    wt, (xt, lut, stt) = _synced(lambda: st.gssvx(st.Options(), a100, b,
+                                                  backend="torch"))
+    rel_x = float(np.max(np.abs(xh - xt)) / np.max(np.abs(xh)))
+    dh, dt = st.get_diag_u(luh), st.get_diag_u(lut)
+    rel_d = float(np.max(np.abs(dh - dt)) / np.max(np.abs(dh)))
+    recs["f"] = {"n": int(a100.n), "host_wall_s": wh, "card_wall_s": wt,
+                 "host_factor_s": sh.utime["FACT"],
+                 "card_factor_s": stt.utime["FACT"],
+                 "berr": [sh.berr, stt.berr],
+                 "tiny": [sh.tiny_pivots, stt.tiny_pivots],
+                 "rel_x": rel_x, "rel_diag_u": rel_d}
+    _log_drive("complex f", recs["f"], card)
+    if not (rel_x <= 1e-10 and rel_d <= 1e-10 and dt.dtype == np.complex128
+            and sh.tiny_pivots == stt.tiny_pivots
+            and max(sh.berr, stt.berr) <= BERR_MAX):
+        raise RuntimeError(f"complex (f): {recs['f']}")
+    del luh, lut
+    # each complex lane against its plain version, at the complex
+    # schedule's shapes
+    kres = kernel_checks(plan, dtypes=COMPLEX, pairs=COMPLEX_PAIRS,
+                         k1_extra=K1_LARGEST_K48, many=False, sweep=False)
+    drives = [recs["a"]["lanes"], recs["b"]["lanes"]] + [
+        r["first_lanes"] for rd in recs["d"] for r in rd["nrhs"].values()]
+    lanes = {k: {ln: sum(d[k].get(ln, 0) for d in drives)
+                 for ln in COMPLEX_LANES[k]} for k in COMPLEX_LANES}
+    return recs, kres, lanes
+
+
+# --------------------------------------------------------------------
 # kernels against their plain versions
 # --------------------------------------------------------------------
 
 def _tdt(name):
     import torch
-    return {"float32": torch.float32, "float64": torch.float64}[name]
+    return getattr(torch, name)
+
+
+def _ops_per_mac(dtype: str) -> int:
+    """Real operations of one multiply-add: 2, or 8 in complex."""
+    return 8 if dtype.startswith("complex") else 2
 
 
 def load_parent_k1(path):
@@ -1020,8 +1203,8 @@ def load_parent_k1(path):
 
 def k1_bound(N, mb, wb, dtype):
     from superlu_dist_tpu_torch.ops import panel_lu
-    it = 8 if dtype == "float64" else 4
-    return bound_ms(panel_lu.k1_flops(N, mb, wb),
+    it = _tdt(dtype).itemsize
+    return bound_ms(panel_lu.k1_flops(N, mb, wb) * _ops_per_mac(dtype) / 2,
                     panel_lu.k1_bytes(N, mb, it), dtype)
 
 
@@ -1160,7 +1343,9 @@ def check_ea_scatter(sched, g, bucket, dtype):
     ms, plain_ms, lib_ms = tm["kernel"], tm["plain"], tm["library"]
     live, nbytes = ea_scatter.bound_work(bucket, g.mb, F0.element_size())
     nrec = int(bucket.so.numel())
-    b_ms, b_by = bound_ms(0.0 + live, nbytes, dtype)
+    # one add per live lane: 2 real operations in complex
+    b_ms, b_by = bound_ms(live * (2.0 if dtype.startswith("complex")
+                                  else 1.0), nbytes, dtype)
     return {"shape": [nrec, bucket.rc_b, g.mb], "dtype": dtype,
             "live_lanes": live, "max_abs_err": abs_err, "rel_err": rel,
             "tol": TOL[dtype],
@@ -1194,7 +1379,7 @@ def check_lsum(ts, g, gs, R, pdtype, xdtype):
     ey = rel_err(Y1, Y2)
     eu = rel_err(U1, U2)
     abs_err, rel = max(ey[0], eu[0]), max(ey[1], eu[1])
-    tol = TOL[pdtype] if pdtype == xdtype else TOL["float64"]
+    tol = TOL[pdtype] if pdtype == xdtype else TOL[xdtype]
     if not rel <= tol:
         raise RuntimeError(f"lsum {pdtype}/{xdtype} R={R} rel err "
                            f"{rel:.3e} > {tol}")
@@ -1213,14 +1398,30 @@ def check_lsum(ts, g, gs, R, pdtype, xdtype):
     ms, plain_ms, lib_ms = tm["kernel"], tm["plain"], tm.get("library")
     flops, nbytes = lsum.bound_work(t, wb, rt, R, Li.element_size(),
                                     xb.element_size())
-    b_ms, b_by = bound_ms(flops, nbytes, xdtype)
+    b_ms, b_by = bound_ms(flops * _ops_per_mac(xdtype) / 2, nbytes, xdtype)
     return {"shape": [t, wb, rt, R], "dtype": f"{pdtype}/{xdtype}",
+            "lane": lsum.LANES[(tp, tx)],
             "max_abs_err": abs_err, "rel_err": rel, "tol": tol, "ms": ms,
             "plain_ms": plain_ms, "ms_over_plain": ms / plain_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def kernel_checks(plan, parent=None):
+REAL = ("float32", "float64")
+REAL_PAIRS = (("float32", "float32"), ("float64", "float64"),
+              ("float32", "float64"))
+COMPLEX = ("complex64", "complex128")
+COMPLEX_PAIRS = (("complex64", "complex64"), ("complex128", "complex128"),
+                 ("complex64", "complex128"))
+
+
+def kernel_checks(plan, parent=None, dtypes=REAL, pairs=REAL_PAIRS,
+                  k1_extra=None, many=True, sweep=True):
+    """Each kernel against its plain version at shapes of `plan`'s
+    schedule in `dtypes` (K3 in the panel / right-hand-side `pairs`),
+    timed beside its bound and a library call; K1 also at `k1_extra`
+    (default: a middle shape of the k=48 schedule) and, with `many`, at
+    the group with the most fronts; with `sweep`, K1 alone at every
+    shape of the schedule in float64."""
     from collections import Counter
     import torch
     from superlu_dist_tpu_torch.ops import batched, trisolve
@@ -1236,11 +1437,11 @@ def kernel_checks(plan, parent=None):
                  key=lambda g: g.n_loc)
     g_big = max(sched.groups, key=lambda g: (g.mb, g.n_loc))
     g_many = max(sched.groups, key=lambda g: (g.n_loc, g.mb))
-    shapes = list(dict.fromkeys([(g.n_loc, g.mb, g.wb)
-                                 for g in (g_freq, g_big, g_many)]
-                                + [K1_MIDDLE]))
+    picks = (g_freq, g_big, g_many) if many else (g_freq, g_big)
+    shapes = list(dict.fromkeys([(g.n_loc, g.mb, g.wb) for g in picks]
+                                + [k1_extra or K1_MIDDLE]))
     for N, mb, wb in shapes:
-        for dt in ("float32", "float64"):
+        for dt in dtypes:
             r = check_panel_lu(N, mb, wb, dt, parent)
             log("[kernel panel_lu] " + json.dumps(r))
             res["panel_lu"].append(r)
@@ -1254,8 +1455,8 @@ def kernel_checks(plan, parent=None):
                  key=lambda gb: gb[1].so.numel())
     pick_b = max(buckets, key=lambda gb: gb[1].so.numel()
                  * gb[1].rc_b ** 2)
-    for g, b in (pick_f, pick_b):
-        for dt in ("float32", "float64"):
+    for g, b in ((pick_f,) if pick_b[1] is pick_f[1] else (pick_f, pick_b)):
+        for dt in dtypes:
             r = check_ea_scatter(sched, g, b, dt)
             log("[kernel ea_scatter] " + json.dumps(r))
             res["ea_scatter"].append(r)
@@ -1270,17 +1471,17 @@ def kernel_checks(plan, parent=None):
     f_big = max(fwd, key=lambda p: p[1].trim * p[0].mb * p[0].wb)
     for g, gs in (f_freq, f_big):
         for R in (1, 64):
-            for pd, xd in (("float32", "float32"), ("float64", "float64"),
-                           ("float32", "float64")):
+            for pd, xd in pairs:
                 r = check_lsum(ts, g, gs, R, pd, xd)
                 log("[kernel lsum] " + json.dumps(r))
                 res["lsum"].append(r)
     # many right-hand sides are K3's open target: its time over the
-    # plain version's at nrhs 64, float64
-    log("[lsum nrhs 64] kernel ms / plain ms, float64: " + json.dumps(
-        {str(r["shape"]): round(r["ms_over_plain"], 3)
-         for r in res["lsum"]
-         if r["shape"][-1] == 64 and r["dtype"] == "float64/float64"}))
+    # plain version's at nrhs 64, in the widest type
+    wide = f"{dtypes[-1]}/{dtypes[-1]}"
+    log(f"[lsum nrhs 64] kernel ms / plain ms, {dtypes[-1]}: "
+        + json.dumps({str(r["shape"]): round(r["ms_over_plain"], 3)
+                      for r in res["lsum"]
+                      if r["shape"][-1] == 64 and r["dtype"] == wide}))
     # the kernels against one PyTorch call (ms / library ms; below 1 is
     # faster; for K1 the call is the trailing update's batched GEMM
     # alone, `update_library_ms`) and against their bound (bound ms /
@@ -1297,7 +1498,8 @@ def kernel_checks(plan, parent=None):
             if r.get("parent_ms") else {})}
         for name in ("panel_lu", "ea_scatter", "lsum")
         for r in res[name]]))
-    res["k1_sweep"] = k1_sweep(sched, parent)
+    if sweep:
+        res["k1_sweep"] = k1_sweep(sched, parent)
     return res
 
 
@@ -1314,7 +1516,16 @@ KERNELS = {
 }
 
 
-def kernels_line(res, launches, gate_launches, driver_launches):
+def _lane(name, r):
+    """The lane a kernel-check row ran on."""
+    if name == "lsum":
+        return r["lane"]
+    return {"float32": "f32", "float64": "f64", "complex64": "c64",
+            "complex128": "c128"}[r["dtype"]]
+
+
+def kernels_line(res, launches, gate_launches, driver_launches, cres,
+                 clanes):
     out = []
     for name, (src, repl) in KERNELS.items():
         rows = res[name]
@@ -1337,6 +1548,22 @@ def kernels_line(res, launches, gate_launches, driver_launches):
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "shape": head["shape"], "dtype": head["dtype"]})
+    # the complex lanes: launches in phase 11's drives (a) and (b), the
+    # headline row at the largest bound (one right-hand side for lsum)
+    for name, (src, repl) in KERNELS.items():
+        for lane in COMPLEX_LANES[name]:
+            rows = [r for r in cres[name] if _lane(name, r) == lane]
+            head = max((r for r in rows
+                        if name != "lsum" or r["shape"][-1] == 1),
+                       key=lambda r: r["bound_ms"])
+            out.append({
+                "name": f"{name}_{lane}", "route": "cuda", "source": src,
+                "replaces": repl, "launches": int(clanes[name][lane]),
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"],
+                "shape": head["shape"], "dtype": head["dtype"]})
     return {"kernels": out}
 
 
@@ -1445,13 +1672,23 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["drivers"], driver_launches = drivers_phase()
 
+    # native complex systems
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_cplx = time.perf_counter()
+    report["complex"], cres, clanes = complex_phase()
+    report["complex_kernels"] = cres
+    report["complex_wall_s"] = time.perf_counter() - t_cplx
+    log(f"[complex] phase wall {report['complex_wall_s']:.1f} s, "
+        "launches per lane " + json.dumps(clanes))
+
     report["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
 
-    # 11. the summary lines, the contract line last
+    # 12. the summary lines, the contract line last
     log(json.dumps(kernels_line(res, rec["launches"], gate_launches,
-                                driver_launches)))
+                                driver_launches, cres, clanes)))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA kernels (cp.async copies and the
-// FP64 tensor-core product are used by K1 and K3).  Each kernel source is
+// FP64 tensor-core product are used by K1 and K3; the complex type by
+// the complex lanes of all three).  Each kernel source is
 // built into its own shared library with a plain C interface (see
 // superlu_dist_tpu_torch/ops/_cuda.py); every library exports
 // slu_cuda_errstr so its Python wrapper can name a failed launch.
@@ -80,4 +81,130 @@ __device__ __forceinline__ void dmma16(double& c0, double& c1, double& c2,
       : "+d"(c0), "+d"(c1), "+d"(c2), "+d"(c3)
       : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(a4), "d"(a5), "d"(a6),
         "d"(a7), "d"(b0), "d"(b1), "d"(b2), "d"(b3));
+}
+
+// ------------------------------------------------------------ complex
+
+// |x| of a real number
+__host__ __device__ __forceinline__ float tabs(float x) { return fabsf(x); }
+__host__ __device__ __forceinline__ double tabs(double x) { return fabs(x); }
+
+// A complex number with its own device operators, laid out as torch's
+// complex64 / complex128 (real part first; 8- / 16-byte aligned, so an
+// element is one 8- / 16-byte load).  The default constructor is
+// trivial, so arrays of it may live in shared memory.
+template <typename R>
+struct alignas(2 * sizeof(R)) cplx {
+  R re, im;
+  cplx() = default;
+  __host__ __device__ constexpr cplx(R r, R i = R(0)) : re(r), im(i) {}
+  // widening (complex64 panels read by a complex128 lane) and
+  // narrowing are explicit
+  template <typename S>
+  __host__ __device__ explicit constexpr cplx(const cplx<S>& o)
+      : re(static_cast<R>(o.re)), im(static_cast<R>(o.im)) {}
+};
+
+template <typename R>
+__host__ __device__ __forceinline__ cplx<R> operator+(cplx<R> a, cplx<R> b) {
+  return {a.re + b.re, a.im + b.im};
+}
+template <typename R>
+__host__ __device__ __forceinline__ cplx<R> operator-(cplx<R> a, cplx<R> b) {
+  return {a.re - b.re, a.im - b.im};
+}
+template <typename R>
+__host__ __device__ __forceinline__ cplx<R> operator-(cplx<R> a) {
+  return {-a.re, -a.im};
+}
+template <typename R>
+__host__ __device__ __forceinline__ cplx<R> operator*(cplx<R> a, cplx<R> b) {
+  return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
+}
+template <typename R>
+__host__ __device__ __forceinline__ cplx<R> operator*(cplx<R> a, R b) {
+  return {a.re * b, a.im * b};
+}
+// Smith's division: no overflow or underflow of |b|^2 on the way
+template <typename R>
+__host__ __device__ __forceinline__ cplx<R> operator/(cplx<R> a, cplx<R> b) {
+  if (tabs(b.re) >= tabs(b.im)) {
+    const R r = b.im / b.re, d = b.re + b.im * r;
+    return {(a.re + a.im * r) / d, (a.im - a.re * r) / d};
+  }
+  const R r = b.re / b.im, d = b.im + b.re * r;
+  return {(a.re * r + a.im) / d, (a.im * r - a.re) / d};
+}
+template <typename R>
+__host__ __device__ __forceinline__ cplx<R>& operator+=(cplx<R>& a,
+                                                       cplx<R> b) {
+  return a = a + b;
+}
+template <typename R>
+__host__ __device__ __forceinline__ cplx<R>& operator-=(cplx<R>& a,
+                                                       cplx<R> b) {
+  return a = a - b;
+}
+template <typename R>
+__host__ __device__ __forceinline__ cplx<R>& operator*=(cplx<R>& a,
+                                                       cplx<R> b) {
+  return a = a * b;
+}
+template <typename R>
+__host__ __device__ __forceinline__ cplx<R>& operator/=(cplx<R>& a,
+                                                       cplx<R> b) {
+  return a = a / b;
+}
+template <typename R>
+__host__ __device__ __forceinline__ bool operator==(cplx<R> a, cplx<R> b) {
+  return a.re == b.re && a.im == b.im;
+}
+
+using c64 = cplx<float>;
+using c128 = cplx<double>;
+
+// the real type of a scalar type (the type of |x| and of thresholds)
+template <typename T>
+struct RealOf {
+  using type = T;
+};
+template <typename R>
+struct RealOf<cplx<R>> {
+  using type = R;
+};
+template <typename T>
+using real_t = typename RealOf<T>::type;
+
+template <typename T>
+struct IsComplex {
+  static constexpr bool value = false;
+};
+template <typename R>
+struct IsComplex<cplx<R>> {
+  static constexpr bool value = true;
+};
+
+// |x| of a complex number: the modulus through hypot (no overflow of
+// re^2 + im^2)
+__device__ __forceinline__ float tabs(c64 x) { return hypotf(x.re, x.im); }
+__device__ __forceinline__ double tabs(c128 x) { return hypot(x.re, x.im); }
+
+// warp shuffles of any scalar type (a complex one moves as two reals)
+template <typename T>
+__device__ __forceinline__ T shfl(T v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+template <typename R>
+__device__ __forceinline__ cplx<R> shfl(cplx<R> v, int src) {
+  return {__shfl_sync(0xffffffffu, v.re, src),
+          __shfl_sync(0xffffffffu, v.im, src)};
+}
+template <typename T>
+__device__ __forceinline__ T shfl_xor(T v, int mask) {
+  return __shfl_xor_sync(0xffffffffu, v, mask);
+}
+template <typename R>
+__device__ __forceinline__ cplx<R> shfl_xor(cplx<R> v, int mask) {
+  return {__shfl_xor_sync(0xffffffffu, v.re, mask),
+          __shfl_xor_sync(0xffffffffu, v.im, mask)};
 }

@@ -22,6 +22,9 @@
 // a front receives a handful of children of a few dozen values each,
 // so what counts is the number of dependent trips to memory.
 //
+// Complex lanes (complex64 / complex128): the same kernels on the complex
+// type of common.cuh, a complex add at each destination.
+//
 // Design.  No atomics, a deterministic result: every destination's
 // values are added in record order.
 //   * Narrow buckets (rc_b <= 32): the schedule builder derives, once
@@ -188,3 +191,5 @@ int run(void* F, void* upd, void* so, void* st, void* pr, void* fronts,
 
 SLU_EA_EXPORT(slu_ea_scatter_f32, float)
 SLU_EA_EXPORT(slu_ea_scatter_f64, double)
+SLU_EA_EXPORT(slu_ea_scatter_c64, c64)
+SLU_EA_EXPORT(slu_ea_scatter_c128, c128)

@@ -51,6 +51,16 @@
 //   and reduce-scattered so that neighbouring lanes store neighbouring
 //   columns with 16-byte stores).
 // TF32 is never used: float32 stays float32 (the refinement contract).
+//
+// Complex lanes (the complex type of common.cuh): complex64 panels with
+// complex64 right-hand sides, complex128 with complex128, and complex64
+// panels with complex128 right-hand sides (the mixed mode, each panel
+// value widened as it is read, as float32 panels are for float64).  They
+// run the same kernels with complex FMAs on the CUDA cores (never the
+// tensor cores), at most 16 right-hand sides per CTA so that a thread's
+// complex sums stay in registers.  Real panels with complex right-hand
+// sides need no lane: the wrapper passes the right-hand sides as real
+// columns (re, im interleaved, 2R of them) to the real lanes.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -294,7 +304,7 @@ struct FmaCore {
             if (j >= h) break;
             const TX send = up ? acc[i][j] : acc[i][j + h];
             const TX keep = up ? acc[i][j + h] : acc[i][j];
-            acc[i][j] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+            acc[i][j] = keep + shfl_xor(send, off);
           }
           w = h;
         }
@@ -303,7 +313,7 @@ struct FmaCore {
         for (int j = 0; j < TN; ++j)
 #pragma unroll
           for (int off = KL / 2; off > 0; off /= 2)
-            acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], off);
+            acc[i][j] += shfl_xor(acc[i][j], off);
       }
       const int r = rg + RS * i;
       const int c = cg * TN + (SCATTER ? kl * CNT : 0);
@@ -319,7 +329,7 @@ struct FmaCore {
 template <int N, typename TX>
 __device__ __forceinline__ void put(TX* dst, const TX* v, int cnt,
                                     bool vec) {
-  if constexpr (N * sizeof(TX) >= 16) {
+  if constexpr (N * sizeof(TX) >= 16 && !IsComplex<TX>::value) {
     if (vec && cnt * sizeof(TX) == 16) {
       if constexpr (std::is_same<TX, float>::value)
         *reinterpret_cast<float4*>(dst) =
@@ -467,7 +477,10 @@ row_dots(const TP* __restrict__ A, int64_t a_sf, int64_t a_sr,
 #pragma unroll
       for (int i = 0; i < RW; ++i) {
         const TP* p = Ar + i * a_sr + k0;
-        if constexpr (E == 4) {
+        if constexpr (IsComplex<TP>::value) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) a[i][e] = p[e];
+        } else if constexpr (E == 4) {
           const float4 v = *reinterpret_cast<const float4*>(p);
           a[i][0] = v.x, a[i][1] = v.y, a[i][2] = v.z, a[i][3] = v.w;
         } else {
@@ -499,7 +512,7 @@ row_dots(const TP* __restrict__ A, int64_t a_sf, int64_t a_sr,
   for (int i = 0; i < RW; ++i) {
 #pragma unroll
     for (int off = 16; off > 0; off /= 2)
-      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+      acc[i] += shfl_xor(acc[i], off);
     if (lane == 0 && m0 + i < M) C[n * c_sf + m0 + i] = acc[i];
   }
 }
@@ -729,18 +742,21 @@ int run(void* Li, int64_t li_sf, int64_t li_sr, void* L21, int64_t l21_sf,
   TX* y = static_cast<TX*>(Y) + y_off * R;
   TX* u = static_cast<TX*>(UPD) + u_off * R;
   const TX* x = static_cast<const TX*>(xb);
-  // 1, 4, 16 or 64 right-hand sides per CTA (more columns tile the grid)
+  // 1, 4, 16 or 64 right-hand sides per CTA (more columns tile the grid;
+  // at most 16 on the complex lanes)
   if (R == 1)
     return lsum_pair<TP, TX, 1>(li, li_sf, li_sr, l21, l21_sf, l21_sr, x, y,
                                 u, t, wb, rtrim, R, s);
   if (R <= 4)
     return lsum_pair<TP, TX, 4>(li, li_sf, li_sr, l21, l21_sf, l21_sr, x, y,
                                 u, t, wb, rtrim, R, s);
-  if (R <= 16)
+  if (R <= 16 || IsComplex<TX>::value)
     return lsum_pair<TP, TX, 16>(li, li_sf, li_sr, l21, l21_sf, l21_sr, x, y,
                                  u, t, wb, rtrim, R, s);
-  return lsum_pair<TP, TX, 64>(li, li_sf, li_sr, l21, l21_sf, l21_sr, x, y,
-                               u, t, wb, rtrim, R, s);
+  if constexpr (!IsComplex<TX>::value)
+    return lsum_pair<TP, TX, 64>(li, li_sf, li_sr, l21, l21_sf, l21_sr, x,
+                                 y, u, t, wb, rtrim, R, s);
+  return 0;
 }
 
 }  // namespace
@@ -758,3 +774,6 @@ int run(void* Li, int64_t li_sf, int64_t li_sr, void* L21, int64_t l21_sf,
 SLU_LSUM_EXPORT(slu_lsum_f32_f32, float, float)
 SLU_LSUM_EXPORT(slu_lsum_f64_f64, double, double)
 SLU_LSUM_EXPORT(slu_lsum_f32_f64, float, double)
+SLU_LSUM_EXPORT(slu_lsum_c64_c64, c64, c64)
+SLU_LSUM_EXPORT(slu_lsum_c128_c128, c128, c128)
+SLU_LSUM_EXPORT(slu_lsum_c64_c128, c64, c128)

@@ -54,6 +54,14 @@
 //         output tiles over a 3-stage cp.async ring.
 //     The products run in float64 on the FP64 tensor cores (mma.sync
 //     m16n8k16), in float32 on FMA with register blocks (never TF32).
+// Complex lanes (complex64 / complex128, the complex type of common.cuh):
+// the same kernels in complex arithmetic.  GESP keeps the pivot's phase
+// (piv/|piv|*thresh, thresh for an exact zero; |piv| through hypot), the
+// counters are the real lanes'.  Every product, the trailing update
+// included, is complex FMAs on the CUDA cores with register blocks (the
+// FP64 mma takes no complex operands); schur_update uses 64 x 64 output
+// tiles at depth 16 there, so that its ring fits shared memory and a
+// thread's complex sums stay in registers.
 // Edge tiles are predicated; the batch is chunked at the 65535 limit of
 // gridDim.y / gridDim.z.
 #include <type_traits>
@@ -67,7 +75,15 @@ constexpr int PB = 64;         // panel block depth (large regime)
 constexpr int RT = 64;         // rows per panel / strip tile
 constexpr int CT = 64;         // columns per panel-update / strip tile
 constexpr int WARP_MB = 32;    // small fronts up to this: a warp each
-constexpr int UBM = 128, UBN = 128, UBK = 32, USTAGES = 3;  // schur_update
+// schur_update's tile: BM x BN outputs, depth BK per stage, ST stages
+template <typename T>
+struct Upd {
+  static constexpr int BM = 128, BN = 128, BK = 32, ST = 3;
+};
+template <typename R>
+struct Upd<cplx<R>> {
+  static constexpr int BM = 64, BN = 64, BK = 16, ST = 3;
+};
 
 // shared-memory row strides (elements): 64-bit fragment reads of the
 // tensor-core path fall in distinct bank pairs with a +4 (A) / +8 (B)
@@ -75,9 +91,6 @@ constexpr int UBM = 128, UBN = 128, UBK = 32, USTAGES = 3;  // schur_update
 constexpr int LDL = PB + 4;    // L tile (A operand), RT x LDL
 constexpr int LDB = CT + 8;    // B operand, PB x LDB
 constexpr int LDD = PB + 1;    // diagonal block, PB x LDD
-
-__device__ __forceinline__ float tabs(float x) { return fabsf(x); }
-__device__ __forceinline__ double tabs(double x) { return fabs(x); }
 
 template <typename T>
 struct Vec16;
@@ -89,16 +102,33 @@ template <>
 struct Vec16<float> {
   using type = float4;
 };
+template <>
+struct Vec16<c128> {
+  using type = double2;
+};
+template <>
+struct Vec16<c64> {
+  using type = float4;
+};
 
-// GESP tiny-pivot replacement of one pivot (dense_lu._tiny_replace)
+// GESP tiny-pivot replacement of one pivot (dense_lu._tiny_replace): a
+// real pivot becomes sign(piv)*thresh, a complex one piv/|piv|*thresh
+// (thresh where it is exactly zero)
 template <typename T>
-__device__ __forceinline__ T gesp(T piv, T thresh, int& ltiny,
+__device__ __forceinline__ T gesp(T piv, real_t<T> thresh, int& ltiny,
                                   int& lzero) {
-  const T apiv = tabs(piv);
+  using R = real_t<T>;
+  const R apiv = tabs(piv);
   const bool is_tiny = apiv < thresh;
   ltiny += is_tiny ? 1 : 0;
-  lzero += (apiv == T(0) && !is_tiny) ? 1 : 0;
-  return is_tiny ? (piv >= T(0) ? thresh : -thresh) : piv;
+  lzero += (apiv == R(0) && !is_tiny) ? 1 : 0;
+  if (!is_tiny) return piv;
+  if constexpr (IsComplex<T>::value) {
+    if (apiv == R(0)) return T(thresh);
+    return T(piv.re / apiv, piv.im / apiv) * thresh;
+  } else {
+    return piv >= T(0) ? thresh : -thresh;
+  }
 }
 
 // ------------------------------------------------------- tile products
@@ -322,7 +352,7 @@ __device__ __forceinline__ void load_block(T* __restrict__ dst, int lds,
 // reciprocal, which goes to rd[t] unless rd is null.  Lane 0 counts.
 template <typename T>
 __device__ __forceinline__ void warp_lu32(T* __restrict__ D, int ld, int n,
-                                          int nsteps, T thresh,
+                                          int nsteps, real_t<T> thresh,
                                           T* __restrict__ rd, int& ltiny,
                                           int& lzero) {
   const int lane = threadIdx.x % 32;
@@ -333,8 +363,7 @@ __device__ __forceinline__ void warp_lu32(T* __restrict__ D, int ld, int n,
 #pragma unroll
   for (int t = 0; t < 32; ++t) {
     if (t < nsteps) {
-      const T piv = gesp(__shfl_sync(0xffffffffu, a[t], t), thresh, ltiny,
-                         lzero);
+      const T piv = gesp(shfl(a[t], t), thresh, ltiny, lzero);
       const T r = T(1) / piv;
       if (lane == t) {
         a[t] = piv;
@@ -344,7 +373,7 @@ __device__ __forceinline__ void warp_lu32(T* __restrict__ D, int ld, int n,
       if (rd != nullptr && lane == 0) rd[t] = r;
 #pragma unroll
       for (int i = t + 1; i < 32; ++i) {
-        const T l = __shfl_sync(0xffffffffu, a[i], t);
+        const T l = shfl(a[i], t);
         if (lane > t) a[i] -= l * a[t];
       }
     }
@@ -509,7 +538,8 @@ __device__ __forceinline__ void small_gemm32(const T* __restrict__ A,
 // and they cost no barrier.  Thread 0 ends with the counts.
 template <typename T>
 __device__ __forceinline__ void factor_invert(T* __restrict__ D, int kb,
-                                              T thresh, T* __restrict__ Li,
+                                              real_t<T> thresh,
+                                              T* __restrict__ Li,
                                               T* __restrict__ Ui,
                                               int& ltiny, int& lzero) {
   __shared__ T rd[PB];
@@ -593,7 +623,7 @@ __device__ __forceinline__ void factor_invert(T* __restrict__ D, int kb,
 // dot product.
 template <typename T>
 __device__ __forceinline__ void factor_diag(T* __restrict__ D, int kb,
-                                            T thresh, int& ltiny,
+                                            real_t<T> thresh, int& ltiny,
                                             int& lzero) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int t = 0; t < kb; ++t) {
@@ -687,7 +717,7 @@ __global__ void __launch_bounds__(NT)
 lu_small(T* __restrict__ F, int64_t N, int mb, int wb,
          const double* __restrict__ thp, int* __restrict__ tiny,
          int* __restrict__ nzero) {
-  const T thresh = static_cast<T>(*thp);
+  const real_t<T> thresh = static_cast<real_t<T>>(*thp);
   using V = typename Vec16<T>::type;
   constexpr int E = 16 / sizeof(T);
   constexpr int NG = NT / G, NW = G / 32;
@@ -960,7 +990,7 @@ panel_step(T* __restrict__ F, T* __restrict__ work, int mb, int wb, int j,
     load_block(R1, LDD, Ff + k0 * mb + k0, mb, kb, kb, PB, PB);
     __syncthreads();
     int ltiny = 0, lzero = 0;
-    const T thresh = static_cast<T>(*thp);
+    const real_t<T> thresh = static_cast<real_t<T>>(*thp);
     if (busy) {
       factor_diag(R1, kb, thresh, ltiny, lzero);
       invert_diag(R1, kb, R0, R2);
@@ -1087,6 +1117,8 @@ __device__ __forceinline__ void stage(T* __restrict__ dst,
 template <typename T>
 __global__ void __launch_bounds__(NT, 1)
 schur_update(T* __restrict__ F, int mb, int wb) {
+  constexpr int UBM = Upd<T>::BM, UBN = Upd<T>::BN, UBK = Upd<T>::BK,
+                USTAGES = Upd<T>::ST;
   constexpr int LA = UBK + 4, LB = UBN + 8;
   constexpr int SA = UBM * LA, SB = UBK * LB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1182,8 +1214,8 @@ int run(void* Fv, void* workv, int64_t N, int64_t mb, int64_t wb,
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t it = sizeof(T);
   const int64_t sm_panel = PANEL_SMEM * it;
-  const int64_t sm_upd =
-      USTAGES * (UBM * (UBK + 4) + UBK * (UBN + 8)) * it;
+  using U = Upd<T>;
+  const int64_t sm_upd = U::ST * (U::BM * (U::BK + 4) + U::BK * (U::BN + 8)) * it;
   if ((e = set_smem(panel_step<T>, sm_panel)) != cudaSuccess ||
       (e = set_smem(strip_solve<T>, sm_panel)) != cudaSuccess ||
       (e = set_smem(schur_update<T>, sm_upd)) != cudaSuccess)
@@ -1218,8 +1250,8 @@ int run(void* Fv, void* workv, int64_t N, int64_t mb, int64_t wb,
     strip_solve<T><<<dim3((unsigned)ceil_div(rb, CT), (unsigned)nf), NT,
                      sm_panel, s>>>(Fc, Wc, (int)mb, (int)wb);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-    schur_update<T><<<dim3((unsigned)ceil_div(rb, UBN),
-                           (unsigned)ceil_div(rb, UBM), (unsigned)nf),
+    schur_update<T><<<dim3((unsigned)ceil_div(rb, U::BN),
+                           (unsigned)ceil_div(rb, U::BM), (unsigned)nf),
                       NT, sm_upd, s>>>(Fc, (int)mb, (int)wb);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   }
@@ -1244,4 +1276,18 @@ extern "C" int slu_panel_lu_f64(void* F, void* work, int64_t N,
                                 void* stream) {
   return run<double>(F, work, N, mb, wb, regime, thresh, tiny, nzero,
                      stream);
+}
+
+extern "C" int slu_panel_lu_c64(void* F, void* work, int64_t N,
+                                int64_t mb, int64_t wb, int64_t regime,
+                                const void* thresh, void* tiny,
+                                void* nzero, void* stream) {
+  return run<c64>(F, work, N, mb, wb, regime, thresh, tiny, nzero, stream);
+}
+
+extern "C" int slu_panel_lu_c128(void* F, void* work, int64_t N,
+                                 int64_t mb, int64_t wb, int64_t regime,
+                                 const void* thresh, void* tiny,
+                                 void* nzero, void* stream) {
+  return run<c128>(F, work, N, mb, wb, regime, thresh, tiny, nzero, stream);
 }

@@ -43,7 +43,9 @@ def torch_dtype(dtype) -> torch.dtype:
     """numpy dtype (or name) -> torch dtype."""
     import numpy as np
     return {np.dtype(np.float64): torch.float64,
-            np.dtype(np.float32): torch.float32}[np.dtype(dtype)]
+            np.dtype(np.float32): torch.float32,
+            np.dtype(np.complex128): torch.complex128,
+            np.dtype(np.complex64): torch.complex64}[np.dtype(dtype)]
 
 
 def upload_int64(arrays, device) -> list:

@@ -17,8 +17,11 @@ plain PyTorch versions on the host, or `--backend host` for the numpy
 multifrontal backend; without a card and without either it exits with
 the no-device message.  The -r/-c/-d process-grid flags and --stats
 are accepted for the reference's command lines, and refused above one
-device: multi-GPU is ROADMAP queue 1 item 15.  Complex matrices read,
-and are refused by the solver (item 10).
+device: multi-GPU is ROADMAP queue 1 item 15.  A complex matrix (a
+`.cua` or complex `.mtx` file, say) factors in complex128, or in the
+complex dtype of `--dtype` (float32 -> complex64), and its manufactured
+solution is complex; pair storage (SLU_COMPLEX_PAIR=1) is refused
+(item 10b).
 """
 
 from __future__ import annotations
@@ -122,11 +125,16 @@ def main(argv=None) -> int:
         print(f"matrix: {args.matrix}  n={n}  nnz={a.nnz}  "
               f"dtype={a.dtype}")
 
+    complex_sys = np.issubdtype(a.dtype, np.complexfloating)
+    fdt = args.dtype or ("complex128" if complex_sys else "float64")
     try:
-        fdt = effective_factor_dtype(a.dtype,
-                                     args.dtype or "float64").name
+        eff = effective_factor_dtype(a.dtype, fdt).name
     except NotImplementedError as e:
         return _refuse(str(e))
+    if eff != fdt:
+        if not args.quiet:
+            print(f"complex matrix: factor dtype mapped to {eff}")
+        fdt = eff
 
     opts = Options(
         factor_dtype=fdt,
@@ -149,8 +157,11 @@ def main(argv=None) -> int:
     # manufactured solution (dGenXtrue_dist / dFillRHS_dist)
     rng = np.random.default_rng(args.seed)
     xtrue = rng.standard_normal((n, args.nrhs))
+    if complex_sys:
+        xtrue = xtrue + 1j * rng.standard_normal((n, args.nrhs))
     asp = a.to_scipy()
-    op = asp if opts.trans == Trans.NOTRANS else asp.T
+    op = {Trans.NOTRANS: asp, Trans.TRANS: asp.T,
+          Trans.CONJ: asp.conj().T}[opts.trans]
     b = op @ xtrue
 
     stats = Stats()
@@ -192,7 +203,10 @@ def _solve_fused(a, b, opts, stats, dev):
     plan = plan_factorization(a, opts, stats=stats, device=dev)
 
     def run(dtype_name, phase):
-        step = make_fused_solver(plan, dtype=dtype_name)
+        # a rung of the ladder names a precision; a complex system
+        # factors in the complex dtype of that precision
+        fdt = effective_factor_dtype(a.dtype, dtype_name)
+        step = make_fused_solver(plan, dtype=fdt)
         with stats.timer(phase):
             x, berr, steps, tiny, _ = step(a.data, b)
             berr = float(berr)      # the last value the step computes

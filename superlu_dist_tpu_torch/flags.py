@@ -27,6 +27,9 @@ FLAGS: dict[str, str] = {
     "SLU_FACTOR_SEG_CELLS": "front-cell budget of one merged factor segment (default 1048576)",
     "SLU_TRISOLVE_MERGE_CELLS": "panel cells (trim*mb*wb) at or below which a solve group joins a merged segment (default 65536)",
     "SLU_TRISOLVE_SEG_CELLS": "panel-cell budget of one merged solve segment (default 1048576)",
+    # --- complex storage (models/gssvx.py, ops/batched.py; the
+    # reference's name) ---
+    "SLU_COMPLEX_PAIR": "1 = complex systems on stacked real/imag planes (pair storage); not ported yet (ROADMAP queue 1 item 10b), so a complex system raises NotImplementedError under it; unset or 0 (default) = native complex storage",
     # --- residual SpMV layout (ops/spmv.py) ---
     "SLU_SPMV_LAYOUT": "auto|ell|coo residual SpMV layout (ell = scatter-free padded rows)",
     "SLU_SPMV_ELL_WASTE": "max ELL padding ratio over true nnz before falling back to COO (default 4)",

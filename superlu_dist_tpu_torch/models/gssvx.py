@@ -29,9 +29,16 @@ estimates rcond off the resident factors before the first solve and
 refuses a numerically singular system (numerics/gscon.py,
 numerics/policy.py).
 
-Not ported yet (ROADMAP queue 1): complex systems (item 10), the
-"dist" backend and `grid=` (item 15), health events and memory
-watermarks (item 14; numerics/health.record is their seam).
+Complex systems (complex64/complex128) run natively: a complex matrix
+factors in the complex dtype of its factor precision
+(`effective_factor_dtype`), a real matrix with a complex right-hand
+side keeps its real factors and solves in complex, and CONJ is the
+TRANS pipeline between two conjugations.
+
+Not ported yet (ROADMAP queue 1): pair storage of complex systems
+(SLU_COMPLEX_PAIR=1 raises, item 10b), the "dist" backend and `grid=`
+(item 15), health events and memory watermarks (item 14;
+numerics/health.record is their seam).
 """
 
 from __future__ import annotations
@@ -57,8 +64,6 @@ from ..plan.plan import FactorPlan
 from ..sparse import CSRMatrix
 from ..utils.stats import Stats
 
-_COMPLEX_TODO = ("complex systems are not ported yet (ROADMAP queue 1 "
-                 "item 10, complex and pair lanes)")
 _DIST_TODO = ("the dist backend and grid= (mesh execution over several "
               "devices) are not ported yet (ROADMAP queue 1 item 15, "
               "multi-GPU)")
@@ -105,19 +110,18 @@ class LUFactorization:
         return self.options or self.plan.options
 
 
-def _reject_complex(*dtypes) -> None:
-    for dt in dtypes:
-        if np.issubdtype(np.dtype(dt), np.complexfloating):
-            raise NotImplementedError(_COMPLEX_TODO)
-
-
 def effective_factor_dtype(a_dtype, factor_dtype) -> np.dtype:
-    """The dtype the factors are computed in.  The reference maps a
-    complex system to a complex factor dtype of matching precision;
-    complex systems are refused here until ROADMAP item 10, so a real
-    system keeps `factor_dtype`."""
-    _reject_complex(a_dtype, factor_dtype)
-    return np.dtype(factor_dtype)
+    """The dtype the factors are computed in: a complex system forces a
+    complex factor dtype of matching precision (float32 -> complex64,
+    float64 -> complex128), as the reference maps it; a real system
+    keeps `factor_dtype`.  Under SLU_COMPLEX_PAIR=1 a complex system
+    raises (pair storage is ROADMAP queue 1 item 10b)."""
+    batched.reject_pair_storage(a_dtype, factor_dtype)
+    fdt = np.dtype(factor_dtype)
+    if np.issubdtype(np.dtype(a_dtype), np.complexfloating) \
+            and fdt.kind != "c":
+        fdt = np.promote_types(fdt, np.complex64)
+    return fdt
 
 
 def resolve_backend(backend: str, grid=None) -> str:
@@ -137,7 +141,6 @@ def _plan(a, options, stats, dev, user_perm_r=None, user_perm_c=None):
     """The host plan, bound to `dev` (None for the host backend: such a
     plan names no device, and a torch factorization on it resolves its
     own)."""
-    _reject_complex(a.dtype)
     plan = plan_mod.plan_factorization(a, options, stats=stats,
                                        user_perm_r=user_perm_r,
                                        user_perm_c=user_perm_c)
@@ -175,6 +178,8 @@ def factorize(a: CSRMatrix, options: Options | None = None,
             device = plan.device
         dev = resolve_device(device)
     fdt = effective_factor_dtype(a.dtype, options.factor_dtype)
+    if fdt.name != options.factor_dtype:
+        options = options.replace(factor_dtype=fdt.name)
     if plan is None:
         plan = _plan(a, options, stats, dev, user_perm_r, user_perm_c)
     scaled = plan.scaled_values(a)
@@ -240,20 +245,26 @@ def solve(lu: LUFactorization, b: np.ndarray,
     if b.shape[0] != plan.n:
         raise ValueError(
             f"b has {b.shape[0]} rows but the matrix is {plan.n}×{plan.n}")
-    _reject_complex(b.dtype)
+    batched.reject_pair_storage(b.dtype)
     squeeze = b.ndim == 1
     bb = b[:, None] if squeeze else b
     if options.solve_dtype is not None:
         # pin the sweep precision instead of letting the caller's RHS
         # dtype promote the whole solve (an fp32 pipeline must not pay
-        # fp64 sweeps because a client sent a float64 buffer)
-        bb = bb.astype(np.dtype(options.solve_dtype))
+        # fp64 sweeps because a client sent a float64 buffer); the
+        # realness is the system's, the precision the option's
+        sdt = np.dtype(options.solve_dtype)
+        if np.issubdtype(bb.dtype, np.complexfloating):
+            sdt = np.promote_types(sdt, np.complex64)
+        bb = bb.astype(sdt)
 
     if options.trans == Trans.CONJ:
-        # real systems: Aᴴ = Aᵀ
+        # (Aᴴ)⁻¹·b = conj((Aᵀ)⁻¹·conj(b)): the TRANS pipeline,
+        # refinement included, on the conjugated system (for a real
+        # system the conjugations are no-ops)
         lu_t = dataclasses.replace(
             lu, options=options.replace(trans=Trans.TRANS))
-        x = solve(lu_t, bb, stats=stats)
+        x = np.conj(solve(lu_t, np.conj(bb), stats=stats))
         return x[:, 0] if squeeze else x
 
     if options.trans == Trans.NOTRANS:
@@ -421,7 +432,7 @@ def gssvx(options: Options | None, a: CSRMatrix, b: np.ndarray,
             device = lu.device
         dev = resolve_device(device)
     _validate_system(a, b)
-    _reject_complex(a.dtype, np.asarray(b).dtype)
+    batched.reject_pair_storage(a.dtype, np.asarray(b).dtype)
     return _gssvx_impl(options, a, b, stats, lu, dev, backend,
                        user_perm_r, user_perm_c)
 

@@ -6,6 +6,8 @@ factorization ran in a lower precision, SRC/psgsrfs_d2.c:229), solve
 A·δ = r with the existing factorization on the device, x += δ, until
 the componentwise backward error `berr` reaches eps or stops halving.
 The residuals are scipy CSR products; only the solves touch the card.
+Complex systems refine in complex, with berr max_i |r_i| / (|A||x| +
+|b|)_i over the moduli.
 """
 
 from __future__ import annotations
@@ -13,33 +15,44 @@ from __future__ import annotations
 import numpy as np
 
 
-def _refine_dtype(opts):
+def _refine_dtype(opts, sys_dtype):
     """The accumulator dtype per the resolved residual mode: PLAIN
     accumulates in the working (factor) precision, FP64 in
     refine_dtype.  DOUBLEWORD on this host loop accumulates in native
     float64, which satisfies the same contract (the residual carries
-    at least twice the factor precision)."""
+    at least twice the factor precision).  A complex system (matrix
+    or right-hand side) makes the accumulator complex of the same
+    precision: the mode names the precision, the system its realness."""
     from ..precision.policy import ResidualMode, resolve_residual_mode
     mode = resolve_residual_mode(opts)
     if mode == ResidualMode.PLAIN.value:
-        return np.dtype(opts.factor_dtype)
-    if mode == ResidualMode.DOUBLEWORD.value:
-        return np.dtype(np.float64)
-    return np.dtype(opts.refine_dtype)
+        base = np.dtype(opts.factor_dtype)
+    elif mode == ResidualMode.DOUBLEWORD.value:
+        base = np.dtype(np.float64)
+    else:
+        base = np.dtype(opts.refine_dtype)
+    if np.issubdtype(np.dtype(sys_dtype), np.complexfloating):
+        base = np.promote_types(base, np.complex64)
+    return base
 
 
 def _operands(lu, rdt):
     """A and |A| in refine precision, cached on the handle (the
-    FACTORED rung exists for repeated solves)."""
+    FACTORED rung exists for repeated solves).  A real A stays real
+    under a complex accumulator: `b − A·x` promotes to the same complex
+    residual without doubling the cached matrix."""
+    adt = rdt
+    if rdt.kind == "c" and lu.a.dtype.kind != "c":
+        adt = np.dtype(rdt.char.lower())
     cache = lu.refine_cache
-    ent = cache.get(rdt)
+    ent = cache.get(adt)
     if ent is None:
         with lu.cache_lock:
-            ent = cache.get(rdt)
+            ent = cache.get(adt)
             if ent is None:
-                asp = lu.a.to_scipy().astype(rdt)
+                asp = lu.a.to_scipy().astype(adt)
                 ent = {"asp": asp, "abs_a": abs(asp)}
-                cache[rdt] = ent
+                cache[adt] = ent
     return ent["asp"], ent["abs_a"]
 
 
@@ -47,7 +60,7 @@ def iterative_refine(lu, b, x, solve_factored, to_factor_rhs,
                      from_factor_sol, trans: bool = False):
     """Returns (x, berr, steps, stalled)."""
     opts = lu.effective_options
-    rdt = _refine_dtype(opts)
+    rdt = _refine_dtype(opts, np.promote_types(lu.a.dtype, b.dtype))
     eps = np.finfo(rdt).eps
     asp, abs_a = _operands(lu, rdt)
     if trans:

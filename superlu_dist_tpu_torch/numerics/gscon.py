@@ -2,9 +2,10 @@
 
 Hager–Higham one-norm estimation (the LAPACK dlacon iteration,
 SRC/pdgscon.c in the reference): estimate ‖A⁻¹‖₁ from a handful of
-A⁻¹·x / A⁻ᵀ·x solves against the factorization the handle already
-holds, then rcond = 1 / (‖A‖₁ · ‖A⁻¹‖₁).  The estimator is a host loop
-over `models.gssvx.solve` with refinement off, so every inner solve is
+A⁻¹·x / A⁻ᵀ·x solves (A⁻ᴴ·x for a complex system) against the
+factorization the handle already holds, then rcond = 1 / (‖A‖₁ ·
+‖A⁻¹‖₁).  The estimator is a host loop over `models.gssvx.solve`
+with refinement off, so every inner solve is
 the handle's packed solve: the NOTRANS lane runs K3 (csrc/lsum.cu),
 the TRANS lane its two batched products, and on the card both replay
 the handle's solve graphs (the TRANS lane's are captured at its first
@@ -53,7 +54,8 @@ def _sign(y: np.ndarray) -> np.ndarray:
 
 def inv_norm_est(solve_fn, n: int, dtype, max_iter: int = 5) -> float:
     """Hager–Higham estimate of ‖A⁻¹‖₁.  `solve_fn(v, trans)` returns
-    A⁻¹·v (trans=False) or A⁻ᵀ·v (trans=True).  A non-finite solve
+    A⁻¹·v (trans=False) or A⁻ᵀ·v, A⁻ᴴ·v for a complex system
+    (trans=True).  A non-finite solve
     short-circuits to inf — the factors are past saving, and the caller
     maps inf to rcond = 0."""
     if n == 0:
@@ -105,12 +107,15 @@ def estimate_rcond(lu, anorm: float | None = None,
         max_iter = flags.env_int("SLU_COND_MAXITER", 5)
     eff = lu.effective_options
     base = eff.replace(iter_refine=IterRefine.NOREFINE)
+    # the gradient leg of a complex system solves with Aᴴ (dzlacon),
+    # a real one with Aᵀ
+    cplx = np.dtype(eff.factor_dtype).kind == "c"
     # the copies share the factors: device_lu with the handle's solve
     # graphs, or a host handle's host_lu
     lu_n = dataclasses.replace(lu, options=base.replace(
         trans=Trans.NOTRANS))
     lu_t = dataclasses.replace(lu, options=base.replace(
-        trans=Trans.TRANS))
+        trans=Trans.CONJ if cplx else Trans.TRANS))
     scratch = Stats()   # keep the estimator's wall out of the caller's
 
     def solve_fn(v, trans):

@@ -101,13 +101,14 @@ def build_all(verbose: bool = False) -> dict:
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 
-# exported launchers and their argument lists
+# exported launchers and their argument lists (the suffix names the
+# element type: f32 / f64 real, c64 / c128 complex)
 _SIGNATURES = {
     "panel_lu": {
         # F, work, N, mb, wb, regime (0 small, 1 large), thresh (one
         # float64 on the device), tiny, nzero, stream
-        "slu_panel_lu_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-        "slu_panel_lu_f64": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        **{f"slu_panel_lu_{t}": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+           for t in ("f32", "f64", "c64", "c128")},
     },
     "ea_scatter": {
         # F, upd, so, st, pr, fronts, seg, nfronts, rc_b, mb, head_dst,
@@ -115,14 +116,16 @@ _SIGNATURES = {
         # stream
         **{f"slu_ea_scatter_{t}": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _P, _P, _P, _P, _P, _I, _P]
-           for t in ("f32", "f64")},
+           for t in ("f32", "f64", "c64", "c128")},
     },
     "lsum": {
         # Li, Li strides (front, row), L21, L21 strides, xb, Y, UPD,
         # t, wb, rtrim, R, y_off, u_off, stream
         **{f"slu_lsum_{p}_{x}": [_P, _I, _I, _P, _I, _I, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _P]
-           for p, x in (("f32", "f32"), ("f64", "f64"), ("f32", "f64"))},
+           for p, x in (("f32", "f32"), ("f64", "f64"), ("f32", "f64"),
+                        ("c64", "c64"), ("c128", "c128"),
+                        ("c64", "c128"))},
     },
 }
 

@@ -50,8 +50,21 @@ from .ea_scatter import (NARROW, EaBucket, destination_lists,
 from .panel_lu import launch_plan, partial_lu_batch
 
 
-_COMPLEX_TODO = ("complex systems are not ported yet (ROADMAP queue 1 "
-                 "item 10, complex and pair lanes)")
+_PAIR_TODO = ("pair storage of complex systems (SLU_COMPLEX_PAIR=1: "
+              "stacked real/imag planes) is not ported yet (ROADMAP "
+              "queue 1 item 10b); unset SLU_COMPLEX_PAIR for native "
+              "complex storage")
+
+
+def reject_pair_storage(*dtypes) -> None:
+    """Raise NotImplementedError when SLU_COMPLEX_PAIR=1 asks for pair
+    storage and any of `dtypes` is complex: the port never runs native
+    storage in its place silently."""
+    if flags.env_str("SLU_COMPLEX_PAIR", "0") != "1":
+        return
+    for dt in dtypes:
+        if np.issubdtype(np.dtype(dt), np.complexfloating):
+            raise NotImplementedError(_PAIR_TODO)
 
 
 def _next_bucket(x: int) -> int:
@@ -934,8 +947,7 @@ def factorize_device(plan: FactorPlan, scaled_vals: np.ndarray,
     exactly-zero pivot when tiny-pivot replacement is off (the
     reference's info=i signal)."""
     dtype = np.dtype(dtype)
-    if dtype.kind == "c":
-        raise NotImplementedError(_COMPLEX_TODO)
+    reject_pair_storage(dtype)
     sched = get_schedule(plan)
     device = resolve_device(device)
     vals = np.asarray(scaled_vals).astype(dtype)
@@ -974,10 +986,10 @@ def _solve_device_common(lu, b: np.ndarray, trans: bool,
     squeeze = b.ndim == 1
     bb = b[:, None] if squeeze else b
     # promote rather than cast: a float64 residual against float32
-    # factors solves in float64 (the sweep reads the float32 panels)
+    # factors solves in float64 (the sweep reads the float32 panels),
+    # and a complex right-hand side against real factors in complex
     xdt = np.promote_types(lu.dtype, bb.dtype)
-    if xdt.kind == "c":
-        raise NotImplementedError(_COMPLEX_TODO)
+    reject_pair_storage(xdt)
     bt = torch.from_numpy(np.ascontiguousarray(bb.astype(xdt)))
     if isinstance(lu, StagedLU):
         X = trisolve.staged_sweeps(lu, bt, trans, eager=eager)
@@ -1123,21 +1135,26 @@ def fused_context(plan: FactorPlan, dtype, device, staged: bool,
 
 
 def _to_device(a, device, what: str) -> torch.Tensor:
-    """numpy or a tensor on `device` (a real floating dtype)."""
+    """numpy or a tensor on `device` (a floating or complex dtype)."""
     t = (a if isinstance(a, torch.Tensor)
          else torch.from_numpy(np.ascontiguousarray(a))).to(device)
     if t.is_complex():
-        raise NotImplementedError(_COMPLEX_TODO)
-    if not t.is_floating_point():
-        raise TypeError(f"{what} must be floating point, got {t.dtype}")
+        reject_pair_storage(np.complex128)
+    elif not t.is_floating_point():
+        raise TypeError(f"{what} must be floating point or complex, "
+                        f"got {t.dtype}")
     return t
 
 
-def _fused_inputs(plan: FactorPlan, vals, b, device) -> tuple:
-    """A fused step's (vals, b) on `device`, checked against the plan:
-    vals (nnz,) in plan COO order, b (n, nrhs)."""
+def _fused_inputs(plan: FactorPlan, vals, b, device, dtype) -> tuple:
+    """A fused step's (vals, b) on `device`, checked against the plan
+    and the factor dtype: vals (nnz,) in plan COO order, b (n, nrhs);
+    complex values need a complex factor dtype."""
     v = _to_device(vals, device, "vals")
     bt = _to_device(b, device, "b")
+    if v.is_complex() and np.dtype(dtype).kind != "c":
+        raise TypeError(f"complex values with factor dtype "
+                        f"{np.dtype(dtype).name}: pass a complex dtype")
     nnz, n = len(plan.coo_rows), plan.n
     if v.shape != (nnz,) or bt.ndim != 2 or bt.shape[0] != n:
         raise ValueError(f"vals {tuple(v.shape)} and b {tuple(bt.shape)}: "
@@ -1163,15 +1180,14 @@ def make_fused_step(plan: FactorPlan, dtype=np.float64, device=None,
     solve promotes, it does not cast).  No zero-pivot check: as in the
     reference, a singular factor gives a non-finite x."""
     dtype = np.dtype(dtype)
-    if dtype.kind == "c":
-        raise NotImplementedError(_COMPLEX_TODO)
+    reject_pair_storage(dtype)
     dev = _fused_device(plan, device)
     ctx = fused_context(plan, dtype, dev, staged_enabled(get_schedule(plan)),
                         eager)
     thresh = _thresh_for(plan, dtype)
 
     def step(vals, b):
-        v, bt = _fused_inputs(plan, vals, b, dev)
+        v, bt = _fused_inputs(plan, vals, b, dev, dtype)
         sdt = torch.promote_types(torch_dtype(dtype), bt.dtype)
         with ctx.lock:
             ctx.factor(v, thresh)
@@ -1219,6 +1235,7 @@ class _Refinement:
         n = plan.n
         self.rdt = torch_dtype(rdt)
         self.fdt = torch_dtype(ctx.dtype)
+        real = self.rdt.to_real()        # berr is real on either lane
         self.max_steps = int(max_steps)
         self.sp = ctx.solver(R, self.fdt)    # the sweep runs in dtype
         self.spmv = DeviceSpMV.pattern(_plan_indptr(plan), plan.coo_cols,
@@ -1227,16 +1244,16 @@ class _Refinement:
         inv_final_row[plan.final_row] = np.arange(n)
         z = dict(dtype=self.rdt, device=dev)
         self.row_scale = torch.from_numpy(
-            np.asarray(plan.row_scale, dtype=rdt)).to(dev)
+            np.asarray(plan.row_scale)).to(dev, real)
         self.col_scale = torch.from_numpy(
-            np.asarray(plan.col_scale, dtype=rdt)).to(dev)
+            np.asarray(plan.col_scale)).to(dev, real)
         self.final_col = torch.from_numpy(
             np.asarray(plan.final_col, dtype=np.int64)).to(dev)
         self.inv_final_row = torch.from_numpy(inv_final_row).to(dev)
         self.b = torch.zeros((n, R), **z)
         self.x = torch.zeros((n, R), **z)
         self.r = torch.zeros((n, R), **z)
-        self.berr = torch.zeros((), **z)
+        self.berr = torch.zeros((), dtype=real, device=dev)
         self.steps = torch.zeros((), dtype=torch.int64, device=dev)
         self.flag = torch.zeros(2, dtype=torch.float64, device=dev)
         self.card = dev.type == "cuda"
@@ -1308,7 +1325,7 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
     refinement with `refine_dtype` residual accumulation through the
     device SpMV (pdgsrfs + pdgsmv, SRC/pdgsrfs.c:124, SRC/pdgsmv.c; the
     mixed-precision strategy of psgssvx_d2, SRC/psgssvx_d2.c:516).  The
-    reference's `make_fused_solver`, single device, real dtypes.
+    reference's `make_fused_solver`, single device.
 
     `vals` are the unscaled values in plan COO order and `b` the
     right-hand side in the original ordering, shape (n, nrhs), numpy
@@ -1326,13 +1343,13 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
     the refine dtype, the step budget and the SpMV layout resolve as
     the reference resolves them; where the reference would run its
     double-word lane this raises NotImplementedError (ROADMAP queue 1
-    item 11), and complex dtypes raise (item 10)."""
+    item 11).  A complex `dtype` factors the complex system natively
+    and refines in the complex dtype of the refine precision."""
     from ..options import IterRefine
     from ..precision.policy import resolve_residual_mode
     from .spmv import ell_from_csr, spmv_layout
     dtype = np.dtype(dtype)
-    if dtype.kind == "c":
-        raise NotImplementedError(_COMPLEX_TODO)
+    reject_pair_storage(dtype)
     sched = get_schedule(plan)
     # ---- the residual mode (precision/policy.py), resolved as the
     # reference resolves it ----
@@ -1341,14 +1358,16 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
     if mode not in ("plain", "doubleword", "fp64"):
         raise ValueError(f"unknown residual_mode {mode!r}; expected "
                          "auto|plain|doubleword|fp64")
-    if mode == "doubleword" and dtype.itemsize >= 8:
-        # an f64 factor gains nothing from fp32 pairs
+    if mode == "doubleword" and (dtype.kind == "c"
+                                 or dtype.itemsize >= 8):
+        # an f64 factor gains nothing from fp32 pairs, and complex
+        # systems accumulate natively
         if residual_mode == "doubleword":
             raise ValueError(
                 "residual_mode='doubleword' is the single-device real "
                 "fused path for low-precision factors (df64 fp32 "
-                "pairs); an f64-class factor gains nothing from fp32 "
-                "pairs — use residual_mode='fp64' there")
+                "pairs); complex systems and f64-class factors "
+                "accumulate natively — use residual_mode='fp64' there")
         mode = "fp64"
     if mode == "doubleword":
         if staged:
@@ -1368,8 +1387,10 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
         refine_dtype = (dtype if mode == "plain"
                         else plan.options.refine_dtype)
     rdt = np.dtype(refine_dtype)
-    if rdt.kind == "c":
-        raise NotImplementedError(_COMPLEX_TODO)
+    if dtype.kind == "c" and rdt.kind != "c":
+        # complex system: the accumulator keeps its precision but is
+        # complex (models/refine._refine_dtype)
+        rdt = np.promote_types(rdt, np.complex64)
     if max_steps is None:
         max_steps = (0 if plan.options.iter_refine == IterRefine.NOREFINE
                      else int(plan.options.max_refine_steps))
@@ -1389,7 +1410,7 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
         dtype=np.float64)).to(dev)
 
     def step(vals, b):
-        v, bt = _fused_inputs(plan, vals, b, dev)
+        v, bt = _fused_inputs(plan, vals, b, dev, dtype)
         R = bt.shape[1]
         key = (R, rdt.str, layout, max_steps)
         with ctx.lock:
@@ -1418,7 +1439,7 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
         them: (r, berr) of x for the unscaled `vals` and b (original
         ordering, cast to the refine dtype)."""
         from .spmv import DeviceSpMV
-        v, bt = _fused_inputs(plan, vals, b, dev)
+        v, bt = _fused_inputs(plan, vals, b, dev, dtype)
         op = DeviceSpMV.pattern(_plan_indptr(plan), plan.coo_cols, n, rdt,
                                 dev, layout=layout)
         op.load(v)

@@ -129,14 +129,19 @@ def _level_tri_inverse(T: torch.Tensor, s: int, d: int, *, lower: bool,
 
 def _tiny_replace(piv: torch.Tensor, thresh: float):
     """GESP tiny-pivot replacement: |piv| < thresh → sign(piv)·thresh
-    (SRC/pdgstrf2.c; counted into stat->TinyPivots).  Also flags an
-    exactly-zero pivot that was not replaced (thresh == 0, i.e.
-    ReplaceTinyPivot=NO) — the reference's info=k singularity signal.
-    Returns (newpiv, was_tiny, was_zero) elementwise, counters int32."""
+    (SRC/pdgstrf2.c; counted into stat->TinyPivots); a complex pivot
+    keeps its phase, piv/|piv|·thresh, and becomes thresh where it is
+    exactly zero.  Also flags an exactly-zero pivot that was not
+    replaced (thresh == 0, i.e. ReplaceTinyPivot=NO) — the reference's
+    info=k singularity signal.  Returns (newpiv, was_tiny, was_zero)
+    elementwise, counters int32."""
     apiv = piv.abs()
     is_tiny = apiv < thresh
-    sgn = torch.where(piv >= 0, 1.0, -1.0).to(piv.dtype)
-    newpiv = torch.where(is_tiny, sgn * thresh, piv)
+    if piv.is_complex():
+        unit = torch.where(apiv == 0, torch.ones_like(piv), piv / apiv)
+    else:
+        unit = torch.where(piv >= 0, 1.0, -1.0).to(piv.dtype)
+    newpiv = torch.where(is_tiny, unit * thresh, piv)
     was_zero = (apiv == 0) & ~is_tiny
     return newpiv, is_tiny.to(torch.int32), was_zero.to(torch.int32)
 
@@ -150,8 +155,8 @@ def partial_lu_batch(F: torch.Tensor, thresh, *, wb: int,
     N, mb, _ = F.shape
     if isinstance(thresh, torch.Tensor):
         # a one-element tensor (K1's device threshold) compares in F's
-        # dtype, as a Python float does
-        thresh = thresh.to(F.dtype).reshape(())
+        # real dtype, as a Python float does
+        thresh = thresh.to(F.dtype.to_real()).reshape(())
     nb = min(nb, wb)
     if wb % nb:
         raise ValueError(f"width bucket {wb} is not a multiple of the "

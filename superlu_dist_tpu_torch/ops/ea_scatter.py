@@ -11,7 +11,8 @@ the front batch in place.
 On a CUDA tensor `ea_scatter_add` launches the kernel; on a CPU tensor
 it runs the plain version (`ea_scatter_add_plain`: a masked gather plus
 `index_add_`), never the other way round.  `ea_scatter_add.launches`
-counts kernel launches (one per bucket).
+counts kernel launches (one per bucket), and `ea_scatter_add.lanes`
+the same launches per lane (f32, f64, c64, c128).
 
 Narrow buckets (children at most NARROW wide) carry per-destination
 lists, derived on the host once per schedule (`destination_lists`):
@@ -21,6 +22,7 @@ values that land there in record order.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional
 
@@ -31,6 +33,10 @@ from . import _cuda
 
 # widest child bucket whose lanes go to per-destination lists
 NARROW = 32
+
+# the kernel's lane (the suffix of its launcher's name) per element type
+LANES = {torch.float32: "f32", torch.float64: "f64",
+         torch.complex64: "c64", torch.complex128: "c128"}
 
 
 @dataclasses.dataclass
@@ -113,7 +119,7 @@ def ea_scatter_add(F: torch.Tensor, upd_buf: torch.Tensor,
     if F.device.type == "cpu":
         ea_scatter_add_plain(F, upd_buf, b)
         return
-    _cuda.require_cuda(F, (torch.float32, torch.float64), "ea_scatter")
+    _cuda.require_cuda(F, tuple(LANES), "ea_scatter")
     if upd_buf.dtype != F.dtype or upd_buf.device != F.device:
         raise TypeError("ea_scatter: slab and fronts must share dtype "
                         "and device")
@@ -122,8 +128,8 @@ def ea_scatter_add(F: torch.Tensor, upd_buf: torch.Tensor,
         raise ValueError("ea_scatter: contiguous operands required")
     mb = F.shape[-1]
     lib = _cuda.library("ea_scatter")
-    fn = (lib.slu_ea_scatter_f64 if F.dtype == torch.float64
-          else lib.slu_ea_scatter_f32)
+    lane = LANES[F.dtype]
+    fn = getattr(lib, f"slu_ea_scatter_{lane}")
     lists = (b.head_dst, b.head_src, b.head_src2, b.xptr, b.xsrc)
     if b.head_dst is None:
         lists, nheads = (None,) * 5, 0            # the banded variant
@@ -136,9 +142,11 @@ def ea_scatter_add(F: torch.Tensor, upd_buf: torch.Tensor,
             _cuda.stream_ptr(F))
     _cuda.check(lib, rc, "ea_scatter")
     ea_scatter_add.launches += 1
+    ea_scatter_add.lanes[lane] += 1
 
 
 ea_scatter_add.launches = 0
+ea_scatter_add.lanes = collections.Counter()
 
 
 def bound_work(b: EaBucket, mb: int, itemsize: int) -> tuple:

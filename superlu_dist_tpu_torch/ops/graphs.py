@@ -19,9 +19,9 @@ captured once into a CUDA graph and replayed:
     so that the temporaries of one graph reuse those of another
     instead of each graph keeping a private pool; its graphs must not
     run concurrently;
-  * the kernel wrappers count launches on the host, where a capture
-    records but launches nothing, so each `Graph` keeps the counts its
-    capture made and adds them on every replay;
+  * the kernel wrappers count launches (in all and per lane) on the
+    host, where a capture records but launches nothing, so each `Graph`
+    keeps the counts its capture made and adds them on every replay;
   * nothing falls back: a capture that fails raises.
 """
 
@@ -38,7 +38,7 @@ from .ea_scatter import ea_scatter_add
 from .lsum import lsum_panel
 from .panel_lu import partial_lu_batch
 
-# the wrappers whose `launches` a replay carries forward
+# the wrappers whose `launches` and `lanes` a replay carries forward
 COUNTED = (partial_lu_batch, ea_scatter_add, lsum_panel)
 
 _lock = threading.Lock()
@@ -80,7 +80,7 @@ class Graph:
     def __init__(self, body: Callable[[], None], device: torch.device,
                  pool):
         s = _capture_stream(device)
-        before = [f.launches for f in COUNTED]
+        before = [(f.launches, f.lanes.copy()) for f in COUNTED]
         graph = torch.cuda.CUDAGraph()
         s.wait_stream(torch.cuda.current_stream(device))
         # no garbage collection inside the capture: a collection there
@@ -107,16 +107,21 @@ class Graph:
                 gc.enable()
             # the capture launched nothing: its counts belong to replays
             self.launches = tuple(f.launches - b
-                                  for f, b in zip(COUNTED, before))
-            for f, b in zip(COUNTED, before):
+                                  for f, (b, _) in zip(COUNTED, before))
+            self.lanes = tuple(f.lanes - lb
+                               for f, (_, lb) in zip(COUNTED, before))
+            for f, (b, lb) in zip(COUNTED, before):
                 f.launches = b
+                f.lanes.clear()
+                f.lanes.update(lb)
         torch.cuda.current_stream(device).wait_stream(s)
         self.graph = graph
 
     def replay(self) -> None:
         self.graph.replay()
-        for f, n in zip(COUNTED, self.launches):
+        for f, n, ln in zip(COUNTED, self.launches, self.lanes):
             f.launches += n
+            f.lanes.update(ln)
 
 
 class GraphSet:

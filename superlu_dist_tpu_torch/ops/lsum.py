@@ -11,21 +11,41 @@ narrow fronts, two for wide ones: y, then upd; csrc/lsum.cu picks by
 shape, never a library call); on CPU tensors it runs the plain version
 (`lsum_panel_plain`: the two batched products of
 trisolve._fwd_member).  `lsum_panel.launches` counts wrapper calls
-that launched the kernel.
-The transposed lane stays the PyTorch formulation
+that launched the kernel, and `lsum_panel.lanes` the same calls per
+lane (panel dtype _ right-hand-side dtype, as in `LANES`).
+
+The kernel has real lanes (float32 and float64 panels, float32 panels
+with float64 right-hand sides) and complex ones (complex64, complex128,
+complex64 panels with complex128 right-hand sides).  Real panels with
+complex right-hand sides take the real lanes on the right-hand sides'
+2R real columns (`torch.view_as_real`), as the reference's `_mm_enc`
+codec does.  The transposed lane stays the PyTorch formulation
 (trisolve._fwd_member), as in the reference, whose Pallas kernel never
 took it.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from . import _cuda
 
-_NAMES = {(torch.float32, torch.float32): "slu_lsum_f32_f32",
-          (torch.float64, torch.float64): "slu_lsum_f64_f64",
-          (torch.float32, torch.float64): "slu_lsum_f32_f64"}
+# (panel dtype, right-hand-side dtype) -> the kernel's lane (the suffix
+# of its launcher's name)
+LANES = {(torch.float32, torch.float32): "f32_f32",
+         (torch.float64, torch.float64): "f64_f64",
+         (torch.float32, torch.float64): "f32_f64",
+         (torch.complex64, torch.complex64): "c64_c64",
+         (torch.complex128, torch.complex128): "c128_c128",
+         (torch.complex64, torch.complex128): "c64_c128"}
+
+
+def _as_real_columns(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous complex (..., R) tensor as real (..., 2R) columns,
+    re and im interleaved: a view, no copy."""
+    return torch.view_as_real(t).flatten(-2)
 
 
 def lsum_panel_plain(Li_p, L21_p, xb, Y, UPD, y_off: int, u_off: int,
@@ -48,9 +68,15 @@ def lsum_panel(Li_p, L21_p, xb, Y, UPD, y_off: int, u_off: int,
     if xb.device.type == "cpu":
         lsum_panel_plain(Li_p, L21_p, xb, Y, UPD, y_off, u_off, rtrim)
         return
-    _cuda.require_cuda(xb, (torch.float32, torch.float64), "lsum")
-    name = _NAMES.get((Li_p.dtype, xb.dtype))
-    if name is None or L21_p.dtype != Li_p.dtype:
+    _cuda.require_cuda(xb, tuple({x for _, x in LANES}), "lsum")
+    if (xb.is_complex() and not Li_p.is_complex() and xb.is_contiguous()
+            and Y.is_contiguous() and UPD.is_contiguous()):
+        # real factors, complex right-hand sides: a real panel acts on
+        # re and im alike, so the real lane runs on 2R real columns
+        # (the reference's _mm_enc codec)
+        xb, Y, UPD = (_as_real_columns(t) for t in (xb, Y, UPD))
+    lane = LANES.get((Li_p.dtype, xb.dtype))
+    if lane is None or L21_p.dtype != Li_p.dtype:
         raise TypeError(f"lsum: panel dtype {Li_p.dtype} with "
                         f"right-hand sides {xb.dtype} not supported")
     t, wb, R = xb.shape
@@ -62,16 +88,18 @@ def lsum_panel(Li_p, L21_p, xb, Y, UPD, y_off: int, u_off: int,
     if rtrim > L21_p.shape[1] or Li_p.shape[:2] != (t, wb):
         raise ValueError("lsum: panel shapes do not match xb")
     lib = _cuda.library("lsum")
-    rc = getattr(lib, name)(
+    rc = getattr(lib, f"slu_lsum_{lane}")(
         Li_p.data_ptr(), Li_p.stride(0), Li_p.stride(1),
         L21_p.data_ptr(), L21_p.stride(0), L21_p.stride(1),
         xb.data_ptr(), Y.data_ptr(), UPD.data_ptr(),
         t, wb, rtrim, R, y_off, u_off, _cuda.stream_ptr(xb))
     _cuda.check(lib, rc, "lsum")
     lsum_panel.launches += 1
+    lsum_panel.lanes[lane] += 1
 
 
 lsum_panel.launches = 0
+lsum_panel.lanes = collections.Counter()
 
 
 def bound_work(t: int, wb: int, rtrim: int, R: int, psize: int,

@@ -16,14 +16,15 @@ dtype) alone, so the choice is testable without a card:
   * "large" — one `panel_step` launch per PANEL_BLOCK columns of the
     panel plus one, `panel_copy`, then `strip_solve` (U12) and one
     `schur_update` (F22 −= L21·U12 at depth wb, FP64 tensor cores in
-    float64); a workspace keeps the inverses of the panel's diagonal
+    float64, complex FMAs on the complex lanes); a workspace keeps the inverses of the panel's diagonal
     blocks, so every triangular solve is a product, and the panel's L
     and U until the panel phase ends.
 The shared-memory sizes and grids here mirror `run` in panel_lu.cu.
 
 `partial_lu_batch.launches` counts the wrapper calls that launched the
 kernel (one per group; `launch_plan(...).kernels` says how many CUDA
-kernels each call runs).
+kernels each call runs), and `partial_lu_batch.lanes` the same calls
+per lane (f32, f64, c64, c128).
 
 The kernel reads the GESP threshold on the device, from a one-element
 float64 tensor: a CUDA graph that captured the call (ops/graphs.py)
@@ -33,6 +34,7 @@ replay, where a threshold passed by value would stay the one captured.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -50,10 +52,15 @@ PANEL_BLOCK = 64        # panel block depth of the large regime
 ROW_TILE = 64           # rows per panel_step CTA
 COL_TILE = 64           # columns per strip_solve CTA
 UPDATE_TILE = (128, 128, 32, 3)  # schur_update BM, BN, BK, stages
+UPDATE_TILE_COMPLEX = (64, 64, 16, 3)   # the same on the complex lanes
 SMEM_LIMIT = 232_448    # bytes of shared memory a CTA may use (H100)
 GRID_YZ_MAX = 65535
 
 _REGIME_CODE = {"small": 0, "large": 1}
+
+# the kernel's lane (the suffix of its launcher's name) per element type
+LANES = {torch.float32: "f32", torch.float64: "f64",
+         torch.complex64: "c64", torch.complex128: "c128"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +79,11 @@ def _ceil(a: int, b: int) -> int:
 def launch_plan(N: int, mb: int, wb: int, dtype) -> LaunchPlan:
     """The regime, launches, shared memory and grids K1 uses for a
     (N, mb, mb) batch factored over its leading `wb` columns."""
-    if dtype not in (torch.float32, torch.float64):
+    if dtype not in LANES:
         raise TypeError(f"partial_lu_batch: dtype {dtype} not supported")
     if not 1 <= wb <= mb:
         raise ValueError(f"partial_lu_batch: unsupported wb={wb}, mb={mb}")
-    it = 8 if dtype == torch.float64 else 4
+    it = dtype.itemsize
     if mb * mb * it <= SMALL_FRONT_BYTES:
         if mb <= WARP_MB:        # a warp per front, in registers
             return LaunchPlan("small", 1, 0,
@@ -88,7 +95,8 @@ def launch_plan(N: int, mb: int, wb: int, dtype) -> LaunchPlan:
         smem = (mb * (wb + pad) + wb * (mb - wb + pad)) * it
         return LaunchPlan("small", 1, smem, ((N, 1, 1),), 0)
     pb, rt, ct = PANEL_BLOCK, ROW_TILE, COL_TILE
-    bm, bn, bk, st = UPDATE_TILE
+    bm, bn, bk, st = (UPDATE_TILE_COMPLEX if dtype.is_complex
+                      else UPDATE_TILE)
     sm_panel = 3 * pb * (ct + 8) * it            # = strip_solve's
     sm_upd = st * (bm * (bk + 4) + bk * (bn + 8)) * it
     rb = mb - wb
@@ -121,8 +129,7 @@ def partial_lu_batch(F: torch.Tensor, thresh, *, wb: int,
     block (the kernel blocks by `launch_plan`)."""
     if F.device.type == "cpu":
         return partial_lu_batch_plain(F, thresh, wb=wb, nb=nb)
-    _cuda.require_cuda(F, (torch.float32, torch.float64),
-                       "partial_lu_batch")
+    _cuda.require_cuda(F, tuple(LANES), "partial_lu_batch")
     N, mb, mb2 = F.shape
     if mb != mb2 or not F.is_contiguous():
         raise ValueError("partial_lu_batch: F must be a contiguous "
@@ -139,18 +146,19 @@ def partial_lu_batch(F: torch.Tensor, thresh, *, wb: int,
     tiny = torch.zeros(N, dtype=torch.int32, device=F.device)
     nzero = torch.zeros(N, dtype=torch.int32, device=F.device)
     work = torch.empty(plan.work_elems, dtype=F.dtype, device=F.device)
-    fn = (lib.slu_panel_lu_f64 if F.dtype == torch.float64
-          else lib.slu_panel_lu_f32)
-    rc = fn(F.data_ptr(), work.data_ptr() if plan.work_elems else None,
+    lane = LANES[F.dtype]
+    rc = getattr(lib, f"slu_panel_lu_{lane}")(F.data_ptr(), work.data_ptr() if plan.work_elems else None,
             N, mb, wb, _REGIME_CODE[plan.regime], thresh.data_ptr(),
             tiny.data_ptr(),
             nzero.data_ptr(), _cuda.stream_ptr(F))
     _cuda.check(lib, rc, "panel_lu")
     partial_lu_batch.launches += 1
+    partial_lu_batch.lanes[lane] += 1
     return F, tiny.sum(dtype=torch.int64), nzero.sum(dtype=torch.int64)
 
 
 partial_lu_batch.launches = 0
+partial_lu_batch.lanes = collections.Counter()
 
 
 def k1_flops(N: int, mb: int, wb: int) -> float:

@@ -130,7 +130,8 @@ def spmv_layout(nnz: int, n_rows: int, w: int) -> str:
 class DeviceSpMV:
     """Device SpMV operands (the pdgsmv_init product): the COO tensors
     always, and the padded-ELL planes when the layout resolves to ELL
-    (spmv_layout).  The index tensors are the structure; `load` refills
+    (spmv_layout).  Values may be real or complex; their moduli (|A|,
+    the berr denominator's operator) are real.  The index tensors are the structure; `load` refills
     the value tensors in place from a new value set of the same
     pattern, so a captured program that reads them serves every value
     set."""
@@ -159,7 +160,10 @@ class DeviceSpMV:
         src, w = ell_from_csr(indptr, indices, nnz=nnz)
         if layout is None:
             layout = spmv_layout(nnz, len(indptr) - 1, w)
-        z = dict(dtype=torch_dtype(dtype), device=device)
+        tdt = torch_dtype(dtype)
+        z = dict(dtype=tdt, device=device)
+        # |A| is real for a complex operator too (the berr denominator)
+        za = dict(dtype=tdt.to_real(), device=device)
         ell = {}
         if layout == "ell":
             ell = dict(
@@ -167,11 +171,11 @@ class DeviceSpMV:
                 ell_cols=device_cols(ell_cols_from_src(src, indices, n),
                                      n, device),
                 ell_vals=torch.zeros(src.shape, **z),
-                ell_abs=torch.zeros(src.shape, **z))
+                ell_abs=torch.zeros(src.shape, **za))
         return cls(n=n, rows=torch.from_numpy(rows).to(device),
                    cols=torch.from_numpy(indices).to(device),
                    vals=torch.zeros(nnz, **z),
-                   abs_vals=torch.zeros(nnz, **z), layout=layout, **ell)
+                   abs_vals=torch.zeros(nnz, **za), layout=layout, **ell)
 
     @classmethod
     def build(cls, a, dtype=None, device=None,

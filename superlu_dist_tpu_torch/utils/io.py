@@ -7,8 +7,7 @@ triples, SRC/dbinary_io.c raw binary) and the postfix dispatcher
 `dcreate_matrix_postfix` (EXAMPLE/dcreate_matrix.c).  One
 dtype-polymorphic implementation replaces the s/d/z triplication; all
 readers return a `CSRMatrix`, complex ones included (a `.cua` file
-reads as complex128); only the solver refuses complex systems (ROADMAP
-queue 1 item 10).
+reads as complex128), and the solver takes complex systems natively.
 
 Formats:
   .rua/.rsa/.rra/.cua/.csa/.cra  Harwell-Boeing (type from header)

@@ -831,3 +831,240 @@ def test_host_and_torch_backends_agree_on_card(card):
     dh, dt = st.get_diag_u(luh), st.get_diag_u(lut)
     assert np.max(np.abs(dh - dt)) <= 1e-10 * np.max(np.abs(dh))
     assert sh.tiny_pivots == stt.tiny_pivots
+
+
+# --------------------------------------------------------------------
+# native complex systems: the complex lanes of K1–K3 against their
+# plain versions, and complex systems through the entry points
+# --------------------------------------------------------------------
+
+# kernel vs plain version in complex: the tolerance of the matching
+# real precision
+CTOL = {torch.complex128: 1e-10, torch.complex64: 1e-4}
+_CPLX = [torch.complex128, torch.complex64]
+# K1: warp-per-front small fronts, odd small fronts, the small CTA
+# regime (mb 96 is small in complex64, large in complex128), the large
+# regime with an odd mb and partial panel blocks, and wb == mb
+_K1_CPLX_SHAPES = [(4096, 16, 8), (3, 45, 24), (3, 96, 64), (64, 128, 128),
+                   (2, 363, 96), (1, 512, 512), (2, 1536, 512)]
+
+
+@pytest.mark.parametrize("thresh", [1e-3, 0.0])
+@pytest.mark.parametrize("dtype", _CPLX)
+@pytest.mark.parametrize("N,mb,wb", _K1_CPLX_SHAPES)
+def test_panel_lu_complex_kernel_matches_plain(card, dtype, N, mb, wb,
+                                               thresh):
+    """Counts equal exactly; a replaced tiny pivot keeps its phase
+    (|piv| = thresh), and with thresh 0 the values are compared where
+    the plain version stays finite (see the real lanes' test)."""
+    from superlu_dist_tpu_torch.ops import dense_lu, panel_lu
+    g = torch.Generator(device=card).manual_seed(mb + 1)
+    F0 = torch.randn(N, mb, mb, generator=g, dtype=dtype, device=card)
+    F0 += mb * torch.eye(mb, dtype=dtype, device=card)
+    F0[0, 2, :] = 0
+    F0[0, :, 2] = 0
+    F0[0, 2, 2] = complex(0.6e-30, -0.8e-30) if thresh else 0.0
+    F1, F2 = F0.clone(), F0.clone()
+    _, t1, z1 = panel_lu.partial_lu_batch(F1, thresh, wb=wb)
+    _, t2, z2 = dense_lu.partial_lu_batch(F2, thresh, wb=wb)
+    torch.cuda.synchronize()
+    assert (int(t1), int(z1)) == (int(t2), int(z2)) == (
+        (1, 0) if thresh else (0, 1))
+    if thresh:
+        assert _rel(F1, F2) < CTOL[dtype]
+        piv = complex(F1[0, 2, 2])
+        assert abs(piv - thresh * complex(0.6, -0.8)) <= 1e-6 * thresh
+    else:
+        ok = torch.isfinite(F2)
+        assert torch.isfinite(F1[ok]).all()
+        assert _rel(F1[ok], F2[ok]) < CTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", _CPLX)
+@pytest.mark.parametrize("name", [("laplacian_3d", 12),
+                                  ("convection_diffusion_2d", 40)])
+def test_ea_scatter_complex_kernel_matches_plain(card, dtype, name):
+    from superlu_dist_tpu_torch.ops import ea_scatter
+    sched, buckets = _buckets(card, name)
+    g0 = torch.Generator(device=card).manual_seed(7)
+    upd = torch.randn(sched.upd_total + sched.upd_pad, dtype=dtype,
+                      device=card, generator=g0)
+    wide = set()
+    for grp, b in buckets:
+        F0 = torch.randn(grp.n_loc, grp.mb, grp.mb, dtype=dtype,
+                         device=card, generator=g0)
+        F1, F2 = F0.clone(), F0.clone()
+        ea_scatter.ea_scatter_add(F1, upd, b)
+        ea_scatter.ea_scatter_add_plain(F2, upd, b)
+        assert _rel(F1, F2) < CTOL[dtype], (grp.mb, b.rc_b)
+        wide.add(b.rc_b > 32)
+    assert wide == {False, True}
+
+
+def _lsum_complex_case(card, pd, xd, R, t, wb, mb, rtrim):
+    from superlu_dist_tpu_torch.ops import lsum
+    g = torch.Generator(device=card).manual_seed(t * 1000 + wb + R)
+    Lp = torch.randn(t, mb, wb, dtype=pd, device=card, generator=g) / wb
+    Li = torch.randn(t, wb, wb, dtype=pd, device=card, generator=g) / wb
+    xb = torch.randn(t, wb, R, dtype=xd, device=card, generator=g)
+    bufs = [(torch.zeros(5 + t * wb, R, dtype=xd, device=card),
+             torch.zeros(9 + t * rtrim, R, dtype=xd, device=card))
+            for _ in range(2)]
+    lsum.lsum_panel.lanes.clear()
+    lsum.lsum_panel(Li, Lp[:, wb:], xb, *bufs[0], 4, 8, rtrim)
+    lsum.lsum_panel_plain(Li, Lp[:, wb:], xb, *bufs[1], 4, 8, rtrim)
+    torch.cuda.synchronize()
+    real = {torch.float32: "f32", torch.float64: "f64"}
+    lane = (f"{real[pd]}_{real[xd.to_real()]}" if not pd.is_complex
+            else lsum.LANES[(pd, xd)])
+    assert dict(lsum.lsum_panel.lanes) == {lane: 1}
+    tol = 1e-4 if torch.complex64 in (pd, xd) or pd == torch.float32 \
+        else 1e-10
+    if pd != xd and not (pd == torch.float32 and xd == torch.complex64):
+        tol = 1e-12                     # panels widened to the rhs type
+    assert _rel(bufs[0][0], bufs[1][0]) < tol
+    assert _rel(bufs[0][1], bufs[1][1]) < tol
+    assert not bufs[0][0][:4].any() and not bufs[0][0][4 + t * wb:].any()
+    assert not bufs[0][1][:8].any()
+    assert not bufs[0][1][8 + t * rtrim:].any()
+
+
+_CPAIRS = [(torch.complex128, torch.complex128),
+           (torch.complex64, torch.complex64),
+           (torch.complex64, torch.complex128),
+           (torch.float64, torch.complex128),
+           (torch.float32, torch.complex64),
+           (torch.float32, torch.complex128)]
+
+
+@pytest.mark.parametrize("pd,xd", _CPAIRS)
+@pytest.mark.parametrize("R", [1, 7, 64, 70])
+@pytest.mark.parametrize("t,wb,mb,rtrim", [(7, 32, 160, 120),
+                                           (1, 128, 128, 0),
+                                           (3, 40, 141, 101),
+                                           (300, 24, 90, 60),
+                                           (2, 512, 1600, 1000)])
+def test_lsum_complex_kernel_matches_plain(card, pd, xd, R, t, wb, mb,
+                                           rtrim):
+    """The complex lanes (complex64, complex128, complex64 panels with
+    complex128 right-hand sides) and real panels with complex
+    right-hand sides (the real lanes on 2R real columns), with the lane
+    each call took."""
+    _lsum_complex_case(card, pd, xd, R, t, wb, mb, rtrim)
+
+
+def _complex_counters():
+    from superlu_dist_tpu_torch.ops import ea_scatter, lsum, panel_lu
+    return (panel_lu.partial_lu_batch, ea_scatter.ea_scatter_add,
+            lsum.lsum_panel)
+
+
+@pytest.mark.parametrize("kw,lanes", [
+    ({}, ({"c128"}, {"c128"}, {"c128_c128"})),
+    ({"factor_dtype": "float32"}, ({"c64"}, {"c64"}, {"c64_c128"}))])
+def test_gssvx_complex_on_card_takes_complex_lanes(card, kw, lanes):
+    """helmholtz_2d(40) in complex128, and with a complex64 factor and
+    complex128 refinement: every launch on the complex lanes (gssvx
+    solves in the promoted dtype of the factors and the right-hand side,
+    so a complex64 factor meets complex128 right-hand sides), replays
+    of the captured graphs counted per lane too."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d
+    a = helmholtz_2d(40)
+    rng = np.random.default_rng(0)
+    xt = rng.standard_normal(a.n) + 1j * rng.standard_normal(a.n)
+    for f in _complex_counters():
+        f.launches = 0
+        f.lanes.clear()
+    x, lu, stats = st.gssvx(st.Options(**kw), a, a.to_scipy() @ xt)
+    assert lu.device.type == "cuda" and x.dtype == np.complex128
+    assert tuple(set(f.lanes) for f in _complex_counters()) == lanes
+    assert all(sum(f.lanes.values()) == f.launches > 0
+               for f in _complex_counters())
+    assert stats.berr <= 64 * np.finfo(np.float64).eps
+    assert stats.escalations == 0
+    assert np.linalg.norm(x - xt) / np.linalg.norm(xt) < 1e-12
+
+
+@pytest.mark.parametrize("trans", ["TRANS", "CONJ"])
+def test_gssvx_complex_trans_on_card(card, trans):
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d
+    a = helmholtz_2d(30)
+    rng = np.random.default_rng(1)
+    xt = rng.standard_normal((a.n, 3)) + 1j * rng.standard_normal((a.n, 3))
+    asp = a.to_scipy()
+    op = asp.T if trans == "TRANS" else asp.conj().T
+    x, _, stats = st.gssvx(st.Options(trans=getattr(st.Trans, trans)), a,
+                           op @ xt)
+    assert stats.berr <= 64 * np.finfo(np.float64).eps
+    assert np.linalg.norm(x - xt) / np.linalg.norm(xt) < 1e-12
+
+
+def test_gssvx_real_matrix_complex_rhs_on_card(card):
+    """Real factors, complex right-hand side: the solve runs K3's real
+    lanes on the right-hand side's real columns."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import lsum
+    from superlu_dist_tpu_torch.utils.testmat import convection_diffusion_2d
+    a = convection_diffusion_2d(40)
+    rng = np.random.default_rng(2)
+    xt = rng.standard_normal(a.n) + 1j * rng.standard_normal(a.n)
+    lsum.lsum_panel.lanes.clear()
+    x, lu, stats = st.gssvx(st.Options(), a, a.to_scipy() @ xt)
+    assert lu.device_lu.dtype == np.float64 and x.dtype == np.complex128
+    assert set(lsum.lsum_panel.lanes) == {"f64_f64"}
+    assert stats.berr <= 64 * np.finfo(np.float64).eps
+    assert np.linalg.norm(x - xt) / np.linalg.norm(xt) < 1e-12
+
+
+@pytest.mark.parametrize("dtype", ["complex128", "complex64"])
+def test_fused_solver_complex_graphs_equal_eager(card, dtype):
+    """make_fused_solver on a complex system: the graphs' x equals the
+    eager loop's, berr at eps, and a second call captures nothing."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched
+    from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d
+    a = helmholtz_2d(30)
+    plan = st.plan_factorization(a)
+    rng = np.random.default_rng(3)
+    xt = rng.standard_normal((a.n, 2)) + 1j * rng.standard_normal((a.n, 2))
+    b = torch.from_numpy(a.to_scipy() @ xt).to(card)
+    vals = torch.from_numpy(a.data).to(card)
+    step = batched.make_fused_solver(plan, dtype)
+    eager = batched.make_fused_solver(plan, dtype, eager=True)
+    out = step(vals, b)
+    g0 = step.context.graph_count()
+    out = step(vals, b)
+    assert step.context.graph_count() == g0
+    ref = eager(vals, b)
+    assert out[0].dtype == torch.complex128
+    assert torch.equal(out[0], ref[0])
+    assert float(out[1]) <= 64 * np.finfo(np.float64).eps
+    assert float((out[0].cpu() - torch.from_numpy(xt)).abs().max()) < 1e-12
+
+
+def test_pddrive_complex_on_card(card, tmp_path, capsys):
+    import scipy.io
+    from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d
+    p = tmp_path / "h30.mtx"
+    scipy.io.mmwrite(str(p), helmholtz_2d(30).to_scipy())
+    rc, err, res, launches = _pddrive_on_card(str(p), ["-s", "2"], capsys)
+    assert rc == 0 and err <= 1e-12 and res <= 1e-14
+    assert min(launches) > 0
+
+
+def test_host_and_torch_backends_agree_complex_on_card(card):
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d
+    a = helmholtz_2d(40)
+    rng = np.random.default_rng(4)
+    b = a.to_scipy() @ (rng.standard_normal(a.n)
+                        + 1j * rng.standard_normal(a.n))
+    xh, luh, sh = st.gssvx(st.Options(), a, b, backend="host")
+    xt, lut, stt = st.gssvx(st.Options(), a, b, backend="torch")
+    assert np.max(np.abs(xh - xt)) <= 1e-10 * np.max(np.abs(xh))
+    dh, dt = st.get_diag_u(luh), st.get_diag_u(lut)
+    assert dt.dtype == np.complex128
+    assert np.max(np.abs(dh - dt)) <= 1e-10 * np.max(np.abs(dh))
+    assert sh.tiny_pivots == stt.tiny_pivots

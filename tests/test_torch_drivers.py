@@ -94,11 +94,16 @@ def test_pddrive_verbose_matches_reference_describe(matfile, capsys):
     (["COMPLEX", "--device", "cpu"], "item 10"),
 ])
 def test_pddrive_refusals_name_their_item(matfile, tmp_path, capsys,
-                                          argv, item):
+                                          monkeypatch, argv, item):
+    """Multi-GPU flags name item 15; a complex file runs natively, and
+    under SLU_COMPLEX_PAIR=1 (pair storage, not ported) is refused
+    naming item 10b."""
     import scipy.io
     from superlu_dist_tpu_torch.drivers import pddrive
     from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d
     if argv[0] == "COMPLEX":
+        monkeypatch.setenv("SLU_COMPLEX_PAIR", "1")
+        item = "item 10b"
         p = tmp_path / "h.mtx"
         scipy.io.mmwrite(str(p), helmholtz_2d(4).to_scipy())
         argv = [str(p)] + argv[1:]

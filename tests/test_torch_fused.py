@@ -335,14 +335,19 @@ def test_resid_fn_matches_reference():
     assert abs(float(bt) - float(bj)) <= 1e-12 * abs(float(bj))
 
 
-def test_complex_names_item_10():
+def test_complex_names_item_10(monkeypatch):
+    """Complex dtypes run natively; under SLU_COMPLEX_PAIR=1 (pair
+    storage, ROADMAP item 10b, not ported) make_fused_solver and
+    make_fused_step refuse a complex dtype, and a step refuses complex
+    values, naming the item."""
     from superlu_dist_tpu_torch.ops import batched as tb
     _, pt, _, at = _plans("lap2d12")
-    for make in (tb.make_fused_solver, tb.make_fused_step):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            make(pt, dtype=np.complex128, device="cpu")
     step = tb.make_fused_solver(pt, dtype="float64", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    monkeypatch.setenv("SLU_COMPLEX_PAIR", "1")
+    for make in (tb.make_fused_solver, tb.make_fused_step):
+        with pytest.raises(NotImplementedError, match="item 10b"):
+            make(pt, dtype=np.complex128, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10b"):
         step(at.data.astype(np.complex128), _rhs(at.n, 1))
 
 

@@ -100,11 +100,16 @@ def test_lu_from_arrays_refuses_silent_cpu(monkeypatch):
     assert all(t.device.type == "cpu" for p in lu.panels for t in p)
 
 
-def test_complex_refused_with_roadmap_pointer():
+def test_complex_refused_with_roadmap_pointer(monkeypatch):
+    """Native complex systems run; pair storage (SLU_COMPLEX_PAIR=1)
+    is not ported, and a complex system under it raises naming its
+    ROADMAP item instead of running native storage silently."""
     import superlu_dist_tpu_torch as st
     from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d
     a = helmholtz_2d(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setenv("SLU_COMPLEX_PAIR", "1")
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 10b"):
         st.gssvx(st.Options(), a, np.ones(a.n, complex), device="cpu")
 
 
