@@ -139,12 +139,49 @@ Phases, each of which raises (non-zero exit) on failure:
                  largest shape, (2, 6144, 512)), timed as phase 3 times
                  the real lanes (a complex multiply-add counts as 8 real
                  operations in the bound);
- 12. the kernels line, the card line, and the contract line last.  Each
+ 12. arms     — the core's last switches, each flag set for its drives
+                 only and restored after them:
+                 (a) SLU_LEVEL_MERGE=1 against off, on laplacian_3d(48)
+                 f64 and convection_diffusion_2d(200) f64: per arm the
+                 groups, the factor arm (staged or whole phase), the
+                 first (capturing) FACT and SOLVE walls with the K1–K3
+                 launches of that factorization and solve (each > 0),
+                 resident and peak bytes, berr ≤ 64·eps(f64); replayed
+                 FACT and FACTORED SOLVE walls in turns; x merged
+                 against x off to 1e-10, fewer groups merged, equal
+                 tiny counts;
+                 (b) SLU_TRISOLVE=legacy FACTORED solves of the
+                 laplacian_3d(48) handle at nrhs 1, 8 and 64 and TRANS
+                 at nrhs 1, in turns with the packed arm: first and
+                 replayed walls, the sweeps' device span, x held to the
+                 packed solve's to 1e-10, 0 K3 launches;
+                 then K1 at the merged schedules' new shapes (6, 3072,
+                 512) and (96, 144, 32), float64 and float32, against
+                 its plain version as phase 3 times it, on fronts whose
+                 planted tiny pivot is decoupled from the whole front
+                 (the card tests' input); on phase 3's input, where that
+                 pivot's row and column reach the rest of the front and
+                 U grows, K1 against the plain version is reported
+                 beside the plain version's own spread between blocks
+                 32 and 64 (not gated);
+                 (c) SLU_COMPLEX_PAIR=1 on helmholtz_2d(400) complex128:
+                 gssvx on pair storage, x against phase 11's native x to
+                 1e-10, K1's c128 lane, K2's f64 lane and K3's c128_c128
+                 launched (no other lane); the plane->complex decode of
+                 the whole handle; a complex64-factor refactor (K1 c64,
+                 K2 f32); one later fused call at nrhs 1 (0 graphs
+                 captured); at (2, 1024, 512) the copy into the complex
+                 working front, K1 c128 and the copies back to planes,
+                 each timed apart;
+ 13. the kernels line, the card line, and the contract line last.  Each
      real kernel's `launches` is the sum of its launches in phase 4's
      main path (`launches_main`), in phase 9's drive (a)
-     (`launches_gate`) and in phase 10's drives (a) and (b)
-     (`launches_drivers`); each complex lane's is its launches in phase
-     11's drives (a) and (b) and the first fused calls of (d).
+     (`launches_gate`), in phase 10's drives (a) and (b)
+     (`launches_drivers`) and on its real lanes in phase 12's counted
+     drives (`launches_arms`: (a)'s first factorizations and solves,
+     (c)'s drives and later fused call); each complex lane's is its
+     launches in phase 11's drives (a) and (b) and the first fused
+     calls of (d), plus that lane's in phase 12 (`launches_arms`).
 Everything is made from fixed seeds.  Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -272,6 +309,11 @@ def counters():
             "lsum": lsum.lsum_panel}
 
 
+# each drive's solution, by label (phase 12 holds pair storage to
+# phase 11's native x)
+LAST_X: dict = {}
+
+
 def drive(label, options, a, lu=None, seed=0, nrhs=1,
           need=("panel_lu", "ea_scatter", "lsum")):
     """One gssvx call through the user entry point, with the kernel
@@ -297,6 +339,7 @@ def drive(label, options, a, lu=None, seed=0, nrhs=1,
     t0 = time.perf_counter()
     x, lu, stats = st.gssvx(options, a, b, lu=lu)
     wall = time.perf_counter() - t0
+    LAST_X[label] = x
     launches = {k: f.launches for k, f in cs.items()}
     lanes = _lanes()
     relerr = float(np.linalg.norm(x - xtrue) / np.linalg.norm(xtrue))
@@ -1153,6 +1196,305 @@ def complex_phase():
 
 
 # --------------------------------------------------------------------
+# the core's last arms: level merging, the legacy sweep, pair storage
+# --------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _env(**kw):
+    """Set the environment flags `kw` for one drive, restored after."""
+    old = {k: os.environ.get(k) for k in kw}
+    os.environ.update({k: str(v) for k, v in kw.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _count_lanes(into, lanes):
+    for k, v in lanes.items():
+        for ln, c in v.items():
+            into.setdefault(k, {})
+            into[k][ln] = into[k].get(ln, 0) + c
+
+
+def merge_phase(label, a, lanes, rounds=3):
+    """Phase 12 (a) on one matrix: SLU_LEVEL_MERGE off and on, each set
+    for its drives only.  Per arm: groups, factor arm, the first
+    (capturing) factorization and solve with the K1-K3 launches of that
+    factorization and solve (counts set to 0 just before, each > 0),
+    resident and peak device bytes, berr; then replayed FACT and
+    FACTORED SOLVE walls in turns.  x on merging agrees with x off to
+    1e-10.  Returns (record, the off arm's handle, plan)."""
+    import gc
+    import numpy as np
+    import torch
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched, graphs
+    rng = np.random.default_rng(41)
+    xt = rng.standard_normal(a.n)
+    b = a.to_scipy() @ xt
+    plan = st.plan_factorization(a)
+    rec = {"label": label, "n": int(a.n), "arms": {}}
+    lus, xs = {}, {}
+    for arm in ("off", "on"):
+        with _env(SLU_LEVEL_MERGE=int(arm == "on")):
+            sched = batched.get_schedule(plan)
+            sched.to_device(torch.device("cuda"))
+            gc.collect()
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launches()
+            stats = st.Stats()
+            fw, lu = _synced(lambda: st.factorize(a, plan=plan,
+                                                  stats=stats))
+            sw, x = _synced(lambda: st.solve(lu, b, stats=stats))
+            launches, ln = _launches(), _lanes()
+            _count_lanes(lanes, ln)
+            torch.cuda.synchronize()
+            r = {"groups": len(sched.groups),
+                 "arm": ("staged" if batched.staged_enabled(sched)
+                         else "whole phase"),
+                 "front_cells": int(sum(g.n_loc * g.mb * g.mb
+                                        for g in sched.groups)),
+                 "first_fact_s": fw, "first_solve_s": sw,
+                 "launches": launches,
+                 "resident_bytes": torch.cuda.memory_allocated() - m0,
+                 "peak_bytes": torch.cuda.max_memory_allocated() - m0,
+                 "graphs": graphs.graph_count(sched)
+                 + graphs.graph_count(lu.device_lu),
+                 "berr": float(stats.berr),
+                 "tiny_pivots": int(stats.tiny_pivots),
+                 "relerr": float(np.abs(x - xt).max() / np.abs(xt).max())}
+            if not r["berr"] <= BERR_MAX:
+                raise RuntimeError(f"{label} merge {arm}: berr {r['berr']}")
+            for k, v in launches.items():
+                if v <= 0:
+                    raise RuntimeError(f"{label} merge {arm}: kernel {k} "
+                                       "was never launched")
+            rec["arms"][arm] = r
+            lus[arm], xs[arm] = lu, x
+    walls = {(arm, w): [] for arm in ("off", "on")
+             for w in ("fact", "solve")}
+    for k in range(rounds):
+        for arm in (("off", "on") if k % 2 == 0 else ("on", "off")):
+            with _env(SLU_LEVEL_MERGE=int(arm == "on")):
+                fw, lu_r = _synced(lambda: st.factorize(a, plan=plan))
+                sw, _ = _synced(lambda: st.solve(lus[arm], b))
+                walls[(arm, "fact")].append(fw)
+                walls[(arm, "solve")].append(sw)
+                del lu_r
+    for arm in ("off", "on"):
+        for w in ("fact", "solve"):
+            rec["arms"][arm][f"{w}_s"] = statistics.median(walls[(arm, w)])
+            rec["arms"][arm][f"{w}_s_all"] = walls[(arm, w)]
+    rel = float(np.abs(xs["on"] - xs["off"]).max()
+                / np.abs(xs["off"]).max())
+    rec["x_on_vs_off"] = rel
+    log(f"[arms merge {label}] " + json.dumps(rec))
+    on, off = rec["arms"]["on"], rec["arms"]["off"]
+    if not (rel <= 1e-10 and on["groups"] < off["groups"]
+            and on["tiny_pivots"] == off["tiny_pivots"]):
+        raise RuntimeError(f"{label} merge: {rec}")
+    return rec, lus["off"], plan
+
+
+def legacy_phase(lu, a, rounds=3):
+    """Phase 12 (b): FACTORED solves of one handle (laplacian_3d(48)
+    f64) on SLU_TRISOLVE=legacy against the packed arm, at nrhs 1, 8
+    and 64 and TRANS at nrhs 1: the first (capturing) and the replayed
+    host walls in turns, the device span of the sweeps alone (b on the
+    card), x held to the packed solve's to 1e-10, and no K3 launch on
+    the legacy arm."""
+    import numpy as np
+    import torch
+    from superlu_dist_tpu_torch.ops import batched, lsum, trisolve
+    d = lu.device_lu
+    out = {"arm": ("staged" if isinstance(d, batched.StagedLU)
+                   else "whole phase"), "cases": []}
+    for R, trans in ((1, False), (8, False), (64, False), (1, True)):
+        b = np.random.default_rng(50 + R).standard_normal((a.n, R))
+        fn = batched.solve_device_trans if trans else batched.solve_device
+        bd = torch.from_numpy(b).to("cuda")
+        r = {"nrhs": R, "trans": trans}
+        xs = {}
+        for arm in ("merged", "legacy"):
+            with _env(SLU_TRISOLVE=arm):
+                lsum.lsum_panel.launches = 0
+                r[f"{arm}_first_s"], xs[arm] = _synced(lambda: fn(d, b))
+                r[f"{arm}_k3_launches"] = lsum.lsum_panel.launches
+        walls = {"merged": [], "legacy": []}
+        for k in range(rounds):
+            for arm in (("merged", "legacy") if k % 2 == 0
+                        else ("legacy", "merged")):
+                with _env(SLU_TRISOLVE=arm):
+                    lsum.lsum_panel.launches = 0
+                    w, _ = _synced(lambda: fn(d, b))
+                    walls[arm].append(w)
+                    if arm == "legacy" and lsum.lsum_panel.launches:
+                        raise RuntimeError("legacy solve launched K3")
+        for arm in ("merged", "legacy"):
+            r[f"{arm}_s"] = statistics.median(walls[arm])
+            with _env(SLU_TRISOLVE=arm):
+                r[f"{arm}_span_ms"] = time_cuda(
+                    lambda: trisolve.solve(d, bd, trans))
+        r["rel"] = float(np.abs(xs["legacy"] - xs["merged"]).max()
+                         / np.abs(xs["merged"]).max())
+        out["cases"].append(r)
+        if not (r["rel"] <= 1e-10 and r["legacy_k3_launches"] == 0
+                and (trans or r["merged_k3_launches"] > 0)):
+            raise RuntimeError(f"legacy sweep: {r}")
+    log("[arms legacy laplacian_3d(48)] " + json.dumps(out))
+    return out
+
+
+def pair_copies(N, mb, wb, dtype="complex128"):
+    """K1's complex lane on the pair path at one (N, mb, wb): the copy
+    of the two planes into the complex working front, K1 on it, and
+    the copies of (L, U, Li, Ui, update slab) back to planes, each
+    timed apart in turns (device ms); K1 against its plain version
+    through check_panel_lu."""
+    import torch
+    from superlu_dist_tpu_torch.ops import batched
+    tdt = _tdt(dtype)
+    rdt = tdt.to_real()
+    g = torch.Generator(device="cuda").manual_seed(mb)
+    P = torch.randn(2, N * mb * mb, generator=g, dtype=rdt, device="cuda")
+    Fc = torch.complex(P[0], P[1]).view(N, mb, mb)
+    rb = mb - wb
+    outs = [torch.empty(2, N * s, dtype=rdt, device="cuda")
+            for s in (mb * wb, wb * mb, wb * wb, wb * wb, rb * rb)]
+    parts = (Fc[:, :, :wb], Fc[:, :wb, :], Fc[:, :wb, :wb],
+             Fc[:, :wb, :wb], Fc[:, wb:, wb:])
+
+    def copy_out():
+        for o, c in zip(outs, parts):
+            batched._encode_into(o, c)
+
+    tm = time_turns({"copy_in": lambda: torch.complex(P[0], P[1]),
+                     "copy_out": copy_out}, rounds=5, inner=5)
+    k1 = check_panel_lu(N, mb, wb, dtype)
+    nbytes = 2 * (N * mb * mb * tdt.itemsize)
+    rec = {"shape": [N, mb, wb], "dtype": dtype,
+           "copy_in_ms": tm["copy_in"], "copy_out_ms": tm["copy_out"],
+           "copy_in_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "k1": k1}
+    log("[arms pair copies] " + json.dumps(rec))
+    return rec
+
+
+def pair_phase(lanes):
+    """Phase 12 (c): SLU_COMPLEX_PAIR=1 on helmholtz_2d(400) complex128,
+    set for these drives only: gssvx on pair storage (x against phase
+    11's native x to 1e-10; K1's c128 lane and K2's f64 lane, K3's
+    c128_c128), the whole handle's plane->complex decode timed, a
+    complex64-factor refactor (K1 c64, K2 f32), one later fused call
+    at nrhs 1, and the copies of K1's pair path at (2, 1024, 512)."""
+    import numpy as np
+    import torch
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched
+    from superlu_dist_tpu_torch.utils import testmat
+    a = testmat.helmholtz_2d(COMPLEX_K)
+    rec = {}
+    native = LAST_X[f"c128 helmholtz_2d({COMPLEX_K})"]
+    with _env(SLU_COMPLEX_PAIR=1):
+        lu, rec["gssvx"] = drive(f"pair c128 helmholtz_2d({COMPLEX_K})",
+                                 st.Options(), a, seed=30)
+        _count_lanes(lanes, rec["gssvx"]["lanes"])
+        _check_lanes("pair (c) gssvx", rec["gssvx"]["lanes"],
+                     {"panel_lu": {"c128"}, "ea_scatter": {"f64"},
+                      "lsum": {"c128_c128"}})
+        x = LAST_X[f"pair c128 helmholtz_2d({COMPLEX_K})"]
+        rel = float(np.abs(x - native).max() / np.abs(native).max())
+        rec["x_vs_native"] = rel
+        if not (rel <= 1e-10 and batched._lu_is_pair(lu.device_lu)):
+            raise RuntimeError(f"pair (c): x vs native {rel}")
+        rec["decode_ms"] = time_cuda(
+            lambda: batched.decode_pair(lu.device_lu))
+        rec["held_bytes"] = st.query_space(lu)["held_bytes"]
+        _, rec["c64"] = drive(
+            f"pair c64 factor + c128 refine helmholtz_2d({COMPLEX_K})",
+            st.Options(fact=st.Fact.SAME_PATTERN_SAME_ROWPERM,
+                       factor_dtype="float32"), a, lu=lu, seed=31)
+        _count_lanes(lanes, rec["c64"]["lanes"])
+        _check_lanes("pair (c) c64", rec["c64"]["lanes"],
+                     {"panel_lu": {"c64"}, "ea_scatter": {"f32"},
+                      "lsum": {"c64_c128"}})
+        step = batched.make_fused_solver(lu.plan, "complex128")
+        ctx = step.context
+        dev = ctx.device
+        vals = torch.from_numpy(a.data).to(dev)
+        rng = np.random.default_rng(32)
+        xt = rng.standard_normal((a.n, 1)) + 1j * rng.standard_normal(
+            (a.n, 1))
+        b = torch.from_numpy(a.to_scipy() @ xt).to(dev)
+        fw, _ = _synced(lambda: step(vals, b))
+        g0 = ctx.graph_count()
+        _zero_launches()
+        lw, out = _synced(lambda: step(vals, b))
+        fl = _lanes()
+        _count_lanes(lanes, fl)
+        rec["fused"] = {"pair": ctx.pair, "first_s": fw, "later_s": lw,
+                        "captured_later": ctx.graph_count() - g0,
+                        "berr": float(out[1]), "steps": int(out[2]),
+                        "lanes": fl,
+                        "relerr": float(np.abs(out[0].cpu().numpy() - xt)
+                                        .max() / np.abs(xt).max())}
+        log("[arms pair fused] " + json.dumps(rec["fused"]))
+        if not (ctx.pair and rec["fused"]["captured_later"] == 0
+                and rec["fused"]["berr"] <= BERR_MAX
+                and rec["fused"]["relerr"] <= 1e-10):
+            raise RuntimeError(f"pair (c) fused: {rec['fused']}")
+        del lu, step, ctx
+    rec["copies"] = pair_copies(2, 1024, 512)
+    return rec
+
+
+def arms_phase():
+    """Phase 12 (see the module docstring); raises on any failed check.
+    Returns (records, the launches per kernel and lane of its drives)."""
+    import gc
+    import torch
+    from superlu_dist_tpu_torch.utils import testmat
+    lanes: dict = {}
+    recs = {}
+    a48 = testmat.laplacian_3d(48)
+    recs["merge_k48"], lu48, plan48 = merge_phase("laplacian_3d(48)", a48,
+                                                  lanes)
+    recs["legacy"] = legacy_phase(lu48, a48)
+    del lu48, plan48
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs["merge_cd200"], _, _ = merge_phase(
+        "convection_diffusion_2d(200)", testmat.convection_diffusion_2d(200),
+        lanes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K1 at the merged schedules' new shapes, on fronts whose planted
+    # tiny pivot is decoupled from the whole front (the card tests'
+    # input); the coupled input's spread is reported beside it
+    recs["k1_merged"], recs["k1_growth"] = [], []
+    for N, mb, wb in K1_MERGED:
+        for dt in REAL:
+            r = check_panel_lu(N, mb, wb, dt, decouple=True)
+            log("[arms kernel panel_lu] " + json.dumps(r))
+            recs["k1_merged"].append(r)
+        recs["k1_growth"].append(k1_growth_spread(N, mb, wb))
+    recs["pair"] = pair_phase(lanes)
+    return recs, lanes
+
+
+# the merged schedules' new K1 shapes: laplacian_3d(48)'s widest new
+# group and convection_diffusion_2d(200)'s ragged 144-wide frames
+K1_MERGED = ((6, 3072, 512), (96, 144, 32))
+
+
+# --------------------------------------------------------------------
 # kernels against their plain versions
 # --------------------------------------------------------------------
 
@@ -1221,17 +1563,56 @@ def time_k1(F0, thresh, wb, fns, rounds=5, inner=5):
     return {k: tm[k] - tm["reset"] for k in fns}, tm["reset"]
 
 
-def check_panel_lu(N, mb, wb, dtype, parent=None):
+def _k1_input(N, mb, dtype, decouple=False):
+    """K1's test fronts: seeded, diagonally dominant, with one
+    exactly-tiny pivot planted in front 0 at (3, 3).  Row and column 3
+    are decoupled from the columns before it; with `decouple` from the
+    whole front, so the replaced pivot causes no element growth."""
     import torch
-    from superlu_dist_tpu_torch.ops import dense_lu, panel_lu
     tdt = _tdt(dtype)
     g = torch.Generator(device="cuda").manual_seed(N * 7919 + mb)
     F0 = torch.randn(N, mb, mb, generator=g, dtype=tdt, device="cuda")
     F0 += mb * torch.eye(mb, dtype=tdt, device="cuda")
-    # plant one exactly-tiny pivot in front 0 (row/col 3 decoupled)
-    F0[0, 3, :3] = 0
-    F0[0, :3, 3] = 0
+    if decouple:
+        F0[0, 3, :] = 0
+        F0[0, :, 3] = 0
+    else:
+        F0[0, 3, :3] = 0
+        F0[0, :3, 3] = 0
     F0[0, 3, 3] = 1e-30
+    return F0
+
+
+def k1_growth_spread(N, mb, wb, dtype="float64"):
+    """On the coupled input (`_k1_input`), where the replaced pivot's
+    row and column reach the rest of front 0 and its U grows: K1 against
+    the plain version, beside the plain version at block 32 against
+    block 64.  The two plain blockings are the same algorithm in
+    another summation order, so their spread is the rounding the input
+    itself leaves undetermined.  Reported, not gated."""
+    import torch
+    from superlu_dist_tpu_torch.ops import dense_lu, panel_lu
+    F0 = _k1_input(N, mb, dtype)
+    tdt = _tdt(dtype)
+    thresh = float(torch.finfo(tdt).eps) ** 0.5 * float(F0.abs().max())
+    K, P, P64 = F0.clone(), F0.clone(), F0.clone()
+    panel_lu.partial_lu_batch(K, thresh, wb=wb)
+    dense_lu.partial_lu_batch(P, thresh, wb=wb)
+    dense_lu.partial_lu_batch(P64, thresh, wb=wb, nb=64)
+    torch.cuda.synchronize()
+    rec = {"shape": [N, mb, wb], "dtype": dtype,
+           "kernel_vs_plain": rel_err(K, P)[1],
+           "plain32_vs_plain64": rel_err(P64, P)[1],
+           "growth": float(P.abs().max()) / float(F0.abs().max())}
+    log("[arms kernel panel_lu growth] " + json.dumps(rec))
+    return rec
+
+
+def check_panel_lu(N, mb, wb, dtype, parent=None, decouple=False):
+    import torch
+    from superlu_dist_tpu_torch.ops import dense_lu, panel_lu
+    tdt = _tdt(dtype)
+    F0 = _k1_input(N, mb, dtype, decouple)
     thresh = float(torch.finfo(tdt).eps) ** 0.5 * float(F0.abs().max())
     F1 = F0.clone()
     F2 = F0.clone()
@@ -1524,8 +1905,17 @@ def _lane(name, r):
             "complex128": "c128"}[r["dtype"]]
 
 
+def _arms_count(arms, name, lane=None):
+    """Phase 12's launches of kernel `name`: on `lane`, or with None on
+    its real lanes."""
+    got = arms.get(name, {})
+    if lane is not None:
+        return int(got.get(lane, 0))
+    return int(sum(c for ln, c in got.items() if not ln.startswith("c")))
+
+
 def kernels_line(res, launches, gate_launches, driver_launches, cres,
-                 clanes):
+                 clanes, arms):
     out = []
     for name, (src, repl) in KERNELS.items():
         rows = res[name]
@@ -1539,10 +1929,12 @@ def kernels_line(res, launches, gate_launches, driver_launches, cres,
             "name": name, "route": "cuda", "source": src,
             "replaces": repl,
             "launches": int(launches[name] + gate_launches[name]
-                            + driver_launches[name]),
+                            + driver_launches[name]
+                            + _arms_count(arms, name)),
             "launches_main": int(launches[name]),
             "launches_gate": int(gate_launches[name]),
             "launches_drivers": int(driver_launches[name]),
+            "launches_arms": _arms_count(arms, name),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1558,7 +1950,10 @@ def kernels_line(res, launches, gate_launches, driver_launches, cres,
                        key=lambda r: r["bound_ms"])
             out.append({
                 "name": f"{name}_{lane}", "route": "cuda", "source": src,
-                "replaces": repl, "launches": int(clanes[name][lane]),
+                "replaces": repl,
+                "launches": int(clanes[name][lane])
+                + _arms_count(arms, name, lane),
+                "launches_arms": _arms_count(arms, name, lane),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1682,13 +2077,24 @@ def main(argv=None) -> int:
     log(f"[complex] phase wall {report['complex_wall_s']:.1f} s, "
         "launches per lane " + json.dumps(clanes))
 
+    # the core's last arms: level merging, the legacy sweep, pair
+    # storage, each flag set for its drives only
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_arms = time.perf_counter()
+    report["arms"], arms_lanes = arms_phase()
+    report["arms_wall_s"] = time.perf_counter() - t_arms
+    log(f"[arms] phase wall {report['arms_wall_s']:.1f} s, launches per "
+        "lane " + json.dumps(arms_lanes))
+
     report["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
 
-    # 12. the summary lines, the contract line last
+    # 13. the summary lines, the contract line last
     log(json.dumps(kernels_line(res, rec["launches"], gate_launches,
-                                driver_launches, cres, clanes)))
+                                driver_launches, cres, clanes,
+                                arms_lanes)))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,9 @@ are accepted for the reference's command lines, and refused above one
 device: multi-GPU is ROADMAP queue 1 item 15.  A complex matrix (a
 `.cua` or complex `.mtx` file, say) factors in complex128, or in the
 complex dtype of `--dtype` (float32 -> complex64), and its manufactured
-solution is complex; pair storage (SLU_COMPLEX_PAIR=1) is refused
-(item 10b).
+solution is complex; under SLU_COMPLEX_PAIR=1 it factors on pair
+storage (stacked real/imag planes, ops/batched.py), and the output
+names the storage.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from ..device import NoCudaDeviceError, resolve_device
 from ..models.gssvx import (_should_escalate_fused,
                             effective_factor_dtype, plan_factorization)
 from ..numerics import health
-from ..ops.batched import make_fused_solver
+from ..ops.batched import _pair_mode, make_fused_solver
 from ..options import ColPerm, IterRefine, RowPerm, Trans
 from ..precision.policy import classify_trigger, next_factor_dtype
 from ..utils.io import read_matrix
@@ -127,14 +128,14 @@ def main(argv=None) -> int:
 
     complex_sys = np.issubdtype(a.dtype, np.complexfloating)
     fdt = args.dtype or ("complex128" if complex_sys else "float64")
-    try:
-        eff = effective_factor_dtype(a.dtype, fdt).name
-    except NotImplementedError as e:
-        return _refuse(str(e))
+    eff = effective_factor_dtype(a.dtype, fdt).name
     if eff != fdt:
         if not args.quiet:
             print(f"complex matrix: factor dtype mapped to {eff}")
         fdt = eff
+    if complex_sys and not args.quiet:
+        print("complex storage: "
+              + ("pair planes" if _pair_mode(fdt) else "native"))
 
     opts = Options(
         factor_dtype=fdt,

@@ -27,9 +27,14 @@ FLAGS: dict[str, str] = {
     "SLU_FACTOR_SEG_CELLS": "front-cell budget of one merged factor segment (default 1048576)",
     "SLU_TRISOLVE_MERGE_CELLS": "panel cells (trim*mb*wb) at or below which a solve group joins a merged segment (default 65536)",
     "SLU_TRISOLVE_SEG_CELLS": "panel-cell budget of one merged solve segment (default 1048576)",
+    "SLU_TRISOLVE": "auto|merged|legacy solve arm (default auto = merged): merged = the packed lsum sweep (kernel K3 on the forward step); legacy = the level sweep (index gather, batched products, index_add_ into one solution array; no K3)",
+    # --- level merging (ops/batched.build_schedule; the reference's
+    # names and defaults) ---
+    "SLU_LEVEL_MERGE": "1 = coalesce each etree level's bucket groups into fewer padded groups, cost-bounded by SLU_LEVEL_MERGE_LIMIT; 0 (default) = one group per (wb, mb) bucket",
+    "SLU_LEVEL_MERGE_LIMIT": "max padded/original front-cell ratio a level merge may reach (default 1.5; values below 1 read as 1)",
     # --- complex storage (models/gssvx.py, ops/batched.py; the
     # reference's name) ---
-    "SLU_COMPLEX_PAIR": "1 = complex systems on stacked real/imag planes (pair storage); not ported yet (ROADMAP queue 1 item 10b), so a complex system raises NotImplementedError under it; unset or 0 (default) = native complex storage",
+    "SLU_COMPLEX_PAIR": "1 = factor complex systems on stacked real/imag planes (pair storage): the handle's flats are (2, N) real planes, extend-add runs plane by plane on K2's real lane and the partial LU on K1's complex lane; the handle's storage, not the flag, decides how it is solved; unset or 0 (default) = native complex storage",
     # --- residual SpMV layout (ops/spmv.py) ---
     "SLU_SPMV_LAYOUT": "auto|ell|coo residual SpMV layout (ell = scatter-free padded rows)",
     "SLU_SPMV_ELL_WASTE": "max ELL padding ratio over true nnz before falling back to COO (default 4)",

@@ -33,10 +33,12 @@ Complex systems (complex64/complex128) run natively: a complex matrix
 factors in the complex dtype of its factor precision
 (`effective_factor_dtype`), a real matrix with a complex right-hand
 side keeps its real factors and solves in complex, and CONJ is the
-TRANS pipeline between two conjugations.
+TRANS pipeline between two conjugations.  Under SLU_COMPLEX_PAIR=1 a
+complex system factors on pair storage ((2, N) real planes,
+ops/batched.py); the handle's storage decides how it is solved, so a
+pair handle stays one after the flag is unset.
 
-Not ported yet (ROADMAP queue 1): pair storage of complex systems
-(SLU_COMPLEX_PAIR=1 raises, item 10b), the "dist" backend and `grid=`
+Not ported yet (ROADMAP queue 1): the "dist" backend and `grid=`
 (item 15), health events and memory watermarks (item 14;
 numerics/health.record is their seam).
 """
@@ -114,9 +116,7 @@ def effective_factor_dtype(a_dtype, factor_dtype) -> np.dtype:
     """The dtype the factors are computed in: a complex system forces a
     complex factor dtype of matching precision (float32 -> complex64,
     float64 -> complex128), as the reference maps it; a real system
-    keeps `factor_dtype`.  Under SLU_COMPLEX_PAIR=1 a complex system
-    raises (pair storage is ROADMAP queue 1 item 10b)."""
-    batched.reject_pair_storage(a_dtype, factor_dtype)
+    keeps `factor_dtype`."""
     fdt = np.dtype(factor_dtype)
     if np.issubdtype(np.dtype(a_dtype), np.complexfloating) \
             and fdt.kind != "c":
@@ -245,7 +245,6 @@ def solve(lu: LUFactorization, b: np.ndarray,
     if b.shape[0] != plan.n:
         raise ValueError(
             f"b has {b.shape[0]} rows but the matrix is {plan.n}×{plan.n}")
-    batched.reject_pair_storage(b.dtype)
     squeeze = b.ndim == 1
     bb = b[:, None] if squeeze else b
     if options.solve_dtype is not None:
@@ -352,10 +351,12 @@ def get_diag_u(lu: LUFactorization) -> np.ndarray:
     vals, dst = [], []
     for g, (_, U, _, _) in zip(d.schedule.groups, d.panels):
         # a (wb, mb) row-major panel's diagonal is base + i·(mb+1)
-        idx = np.concatenate([
+        idx = torch.as_tensor(np.concatenate([
             b * g.wb * g.mb + np.arange(int(fp.w[s])) * (g.mb + 1)
-            for b, s in zip(g.sup_pos, g.sup_ids)])
-        vals.append(U[torch.as_tensor(idx, device=U.device)])
+            for b, s in zip(g.sup_pos, g.sup_ids)]), device=U.device)
+        # pair storage: the pivots' two planes, decoded after the gather
+        vals.append(torch.complex(U[0, idx], U[1, idx]) if U.dim() == 2
+                    else U[idx])
         dst += [int(xsup[s]) + np.arange(int(fp.w[s]))
                 for s in g.sup_ids]
     out = np.empty(plan.n, dtype=np.dtype(d.dtype))
@@ -432,7 +433,6 @@ def gssvx(options: Options | None, a: CSRMatrix, b: np.ndarray,
             device = lu.device
         dev = resolve_device(device)
     _validate_system(a, b)
-    batched.reject_pair_storage(a.dtype, np.asarray(b).dtype)
     return _gssvx_impl(options, a, b, stats, lu, dev, backend,
                        user_perm_r, user_perm_c)
 

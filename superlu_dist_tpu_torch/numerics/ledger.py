@@ -20,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-import torch
 
 # stamped payloads ride result stamps and health records; cap the
 # per-factorization location list so a pathological matrix (every
@@ -106,9 +105,7 @@ def build_ledger(lu) -> PerturbationLedger:
     diag = get_diag_u(lu)
     # replaced pivots are EXACTLY ±thresh in the factor dtype; compare
     # against thresh rounded through that dtype with a few ulps of slack
-    tdt = {np.dtype(np.float32): torch.float32,
-           np.dtype(np.float64): torch.float64}[fdt]
-    tol = 16.0 * float(torch.finfo(tdt).eps)
+    tol = 16.0 * float(np.finfo(fdt).eps)
     t_cast = float(np.abs(np.asarray(thresh, dtype=fdt)))
     mag = np.abs(np.asarray(diag, dtype=np.float64))
     # diag is in factor column order; diag[final_col[j]] is original

@@ -28,6 +28,21 @@ same Python body run eagerly on the CPU.  The extend-add slab `upd`
 is updated in place: the reference donated it into each program so it
 streamed through the sequence without a copy, and an in-place update
 of one static tensor is the PyTorch form of that.
+
+Level merging (SLU_LEVEL_MERGE=1, `_coalesce_buckets`) folds a level's
+buckets into fewer padded groups; a front is then written into the
+update slab at its group's stride, which its parent reads
+(`sup_slab_rb`).
+
+Pair storage (SLU_COMPLEX_PAIR=1, `_pair_mode`): a complex system's
+values, update slab and factor flats are (2, N) real planes, as in the
+reference.  Assembly and extend-add run plane by plane (K2's real
+lane: extend-add is linear and structural); the partial LU runs on K1's
+complex lane over a complex working front filled from the planes and
+written back to them.  A pair handle is solved through complex panels
+decoded from its planes once (`solve_panels`).  The reference kept its
+pair programs free of complex operations for the TPU's lowering; here
+the kernels' complex lanes run instead.
 """
 
 from __future__ import annotations
@@ -47,24 +62,29 @@ from . import graphs
 from .dense_lu import unit_lower_inverse, upper_inverse
 from .ea_scatter import (NARROW, EaBucket, destination_lists,
                          ea_scatter_add)
+from .pair_lu import (partial_lu_pair_batch, unit_lower_inverse_pair,
+                      upper_inverse_pair)
 from .panel_lu import launch_plan, partial_lu_batch
 
 
-_PAIR_TODO = ("pair storage of complex systems (SLU_COMPLEX_PAIR=1: "
-              "stacked real/imag planes) is not ported yet (ROADMAP "
-              "queue 1 item 10b); unset SLU_COMPLEX_PAIR for native "
-              "complex storage")
+def _pair_mode(dtype) -> bool:
+    """Factor a complex system on stacked real/imag planes (pair
+    storage) instead of native complex storage: SLU_COMPLEX_PAIR=1 and
+    a complex `dtype`."""
+    return (np.dtype(dtype).kind == "c"
+            and flags.env_str("SLU_COMPLEX_PAIR", "0") == "1")
 
 
-def reject_pair_storage(*dtypes) -> None:
-    """Raise NotImplementedError when SLU_COMPLEX_PAIR=1 asks for pair
-    storage and any of `dtypes` is complex: the port never runs native
-    storage in its place silently."""
-    if flags.env_str("SLU_COMPLEX_PAIR", "0") != "1":
-        return
-    for dt in dtypes:
-        if np.issubdtype(np.dtype(dt), np.complexfloating):
-            raise NotImplementedError(_PAIR_TODO)
+def _real_dtype(dtype) -> np.dtype:
+    dtype = np.dtype(dtype)
+    return np.dtype(dtype.char.lower()) if dtype.kind == "c" else dtype
+
+
+def _lu_is_pair(lu) -> bool:
+    """Factors stored as (2, N) real planes (pair storage), not as 1-D
+    flats: the handle's storage, whatever SLU_COMPLEX_PAIR says now."""
+    first = lu.panels[0][0] if isinstance(lu, StagedLU) else lu.L_flat
+    return first.dim() == 2
 
 
 def _next_bucket(x: int) -> int:
@@ -234,6 +254,23 @@ class BatchedSchedule:
 _EA_BLOCK_MIN_RUN = 8
 
 
+def _level_merge_on() -> bool:
+    """SLU_LEVEL_MERGE=1: coalesce each etree level's bucket groups
+    (`_coalesce_buckets`).  Off by default, as in the reference: the
+    merged frames pay padded flops and slab for fewer groups."""
+    return flags.env_str("SLU_LEVEL_MERGE", "0") == "1"
+
+
+def _level_merge_limit() -> float:
+    """Padded/original cell-ratio bound of level merging
+    (SLU_LEVEL_MERGE_LIMIT, default 1.5, at least 1)."""
+    try:
+        v = flags.env_float("SLU_LEVEL_MERGE_LIMIT", 1.5)
+    except ValueError:
+        v = 1.5
+    return max(1.0, v)
+
+
 def _coalesce_buckets(by_bucket: dict, limit: float) -> dict:
     """Cost-bounded coalescing of one level's {(wb, mb): [sup...]}
     bucket groups into fewer padded groups.
@@ -245,9 +282,7 @@ def _coalesce_buckets(by_bucket: dict, limit: float) -> dict:
     stays within `limit`.  Distinct greedy groups that close with the
     same padded frame fold into one group.
 
-    build_schedule does not merge levels yet (one group per (wb, mb)
-    bucket); level merging is queued in ROADMAP.md, and this planner
-    is held to the reference's by the schedule tests."""
+    build_schedule calls it per level under SLU_LEVEL_MERGE=1."""
     def cells(nf, wb_, rb_):
         mb_ = wb_ + rb_
         return nf * (2 * wb_ * mb_ + rb_ * rb_)
@@ -315,6 +350,12 @@ def build_schedule(plan: FactorPlan) -> BatchedSchedule:
     max_blk_stride = 0           # sizes the upd-slab tail pad
 
     sup_upd_off = np.full(fp.nsuper, -1, dtype=np.int64)
+    # slab row stride each front was written with: its group's rb, which
+    # under level merging can exceed the front's own bucket's
+    # (fp.mb − fp.wb); a parent reads the child's slab at this stride
+    sup_slab_rb = np.zeros(fp.nsuper, dtype=np.int64)
+    merge = _level_merge_on()
+    limit = _level_merge_limit()
     groups: List[GroupSpec] = []
     L_cur = U_cur = Li_cur = Ui_cur = 0
 
@@ -367,6 +408,8 @@ def build_schedule(plan: FactorPlan) -> BatchedSchedule:
         for s in sups:
             by_bucket.setdefault((int(fp.wb[s]), int(fp.mb[s])),
                                  []).append(int(s))
+        if merge and len(by_bucket) > 1:
+            by_bucket = _coalesce_buckets(by_bucket, limit)
         for (wb, mb), slist in sorted(by_bucket.items()):
             N = len(slist)
             rb = mb - wb
@@ -411,12 +454,18 @@ def build_schedule(plan: FactorPlan) -> BatchedSchedule:
                     rc = int(fp.r[c])
                     if rc == 0:
                         continue
-                    # slab row stride the child was written with:
-                    # its own bucket's rb
-                    rbc = int(fp.mb[c]) - int(fp.wb[c])
+                    # slab row stride the child was written with: its
+                    # group's rb
+                    rbc = int(sup_slab_rb[c])
                     coff = sup_upd_off[c]
                     if coff < 0:
                         raise RuntimeError("child scheduled after parent")
+                    gp = groups[group_of_sup[c]]
+                    if rbc != gp.mb - gp.wb or rbc < rc:
+                        raise RuntimeError(
+                            f"slab stride of front {c} ({rbc}) does not "
+                            f"match its group's rb ({gp.mb - gp.wb}) or "
+                            f"holds fewer than its {rc} update rows")
                     ps_row = _pad_pos(fp.ea_map[c], w, wb)
                     runs = _plan_child_blocks(ps_row)
                     if runs is not None:
@@ -437,6 +486,7 @@ def build_schedule(plan: FactorPlan) -> BatchedSchedule:
                 col_idx[b, :w] = np.arange(xsup[s], xsup[s] + w)
                 struct_idx[b, :r] = fp.sym.struct[s]
                 sup_upd_off[s] = upd_off + b * rb * rb
+                sup_slab_rb[s] = rb
                 sup_pos[b] = b
             # dummy fronts: identity pivot block so the padded LU is
             # well-defined
@@ -546,11 +596,14 @@ def build_schedule(plan: FactorPlan) -> BatchedSchedule:
 
 
 def get_schedule(plan: FactorPlan) -> BatchedSchedule:
-    """The plan's schedule, built once and cached on the plan."""
-    sched = plan.__dict__.get("_batched_schedule")
-    if sched is None:
-        sched = plan.__dict__["_batched_schedule"] = build_schedule(plan)
-    return sched
+    """The plan's schedule, built once per level-merge setting and
+    cached on the plan, so a mid-process change of SLU_LEVEL_MERGE or
+    its limit builds a fresh one."""
+    cache = plan.__dict__.setdefault("_batched_schedules", {})
+    key = _level_merge_limit() if _level_merge_on() else None
+    if key not in cache:
+        cache[key] = build_schedule(plan)
+    return cache[key]
 
 
 def _thresh_for(plan: FactorPlan, dtype) -> float:
@@ -571,11 +624,41 @@ def _ea_add_blocks(F2: torch.Tensor, upd_buf: torch.Tensor,
     """Block-copy extend-add lane, in place: each record adds one
     contiguous (li, lj) sub-block of a child update (slab rows at
     stride st) into the (n_loc·mb, mb) front view.  Records run in
-    order, so overlapping destination blocks accumulate correctly."""
+    order, so overlapping destination blocks accumulate correctly.
+    `upd_buf` may be a view (a pair storage's plane): offsets count
+    from its first element."""
+    base = upd_buf.storage_offset()
     for li, lj, st, recs in eb:
         for so, dr, dc in recs:
             F2[dr:dr + li, dc:dc + lj] += upd_buf.as_strided(
-                (li, lj), (st, 1), so)
+                (li, lj), (st, 1), base + so)
+
+
+def _assemble(g: GroupSpec, d: GroupDev, vals_ext: torch.Tensor,
+              upd_buf: torch.Tensor, one: bool = True) -> torch.Tensor:
+    """The group's fronts (n_loc · mb · mb, flat) of one plane: A's
+    entries, the identity padding (`one`: not on an imaginary plane),
+    then the children's update blocks (K2 for the element buckets,
+    slices for the block records)."""
+    mb, n_pad = g.mb, g.n_loc
+    Ff = torch.zeros(n_pad * mb * mb, dtype=upd_buf.dtype,
+                     device=upd_buf.device)
+    # a_dst is unique (one front slot per stored entry), so an indexed
+    # store onto zeros is the reference's scatter-add
+    Ff[d.a_dst] = vals_ext[d.a_src]
+    if one:
+        Ff.index_fill_(0, d.one_dst, 1)
+    F = Ff.view(n_pad, mb, mb)
+    for b in d.ea:
+        ea_scatter_add(F, upd_buf, b)
+    _ea_add_blocks(Ff.view(n_pad * mb, mb), upd_buf, d.eb)
+    return Ff
+
+
+def _encode_into(planes: torch.Tensor, c: torch.Tensor) -> None:
+    """Write the complex tensor `c` into the (2, c.numel()) planes."""
+    planes[0].copy_(c.real.reshape(-1))
+    planes[1].copy_(c.imag.reshape(-1))
 
 
 def factor_group(g: GroupSpec, vals_ext: torch.Tensor,
@@ -585,25 +668,38 @@ def factor_group(g: GroupSpec, vals_ext: torch.Tensor,
     and writes the group's (L, U, Li, Ui) panels into the four flat
     views `out`.  `thresh` is a float or a one-element float64 tensor
     on the device.  Returns (tiny, nzero) as device scalars (no host
-    sync per group)."""
-    dtype = upd_buf.dtype
+    sync per group).
+
+    Pair storage (`upd_buf` (2, ·) real planes): each plane is
+    assembled and extend-added alone (K2's real lane).  On the card the
+    complex working front `torch.complex(F_re, F_im)` goes through K1's
+    complex lane and the complex inverses, and every result is written
+    back to the planes; on the CPU the planes go through ops/pair_lu,
+    the plain version of that path (`_factor_pair_plain`)."""
     device = upd_buf.device
     d = g.dev(device)
     mb, wb, n_pad = g.mb, g.wb, g.n_loc
-    Ff = torch.zeros(n_pad * mb * mb, dtype=dtype, device=device)
-    # a_dst is unique (one front slot per stored entry), so an indexed
-    # store onto zeros is the reference's scatter-add
-    Ff[d.a_dst] = vals_ext[d.a_src]
-    Ff.index_fill_(0, d.one_dst, 1)
-    F = Ff.view(n_pad, mb, mb)
-    for b in d.ea:
-        ea_scatter_add(F, upd_buf, b)
-    _ea_add_blocks(Ff.view(n_pad * mb, mb), upd_buf, d.eb)
-    F, tiny, nzero = partial_lu_batch(F, thresh, wb=wb)
+    pair = upd_buf.dim() == 2
+    if pair:
+        planes = (_assemble(g, d, vals_ext[0], upd_buf[0]),
+                  _assemble(g, d, vals_ext[1], upd_buf[1], one=False))
+        if device.type == "cpu":
+            return _factor_pair_plain(g, torch.stack(planes), thresh,
+                                      upd_buf, out)
+        F = torch.complex(*planes)
+    else:
+        F = _assemble(g, d, vals_ext, upd_buf)
+    dtype = F.dtype
+    F, tiny, nzero = partial_lu_batch(F.view(n_pad, mb, mb), thresh,
+                                      wb=wb)
 
-    L, U, Li, Ui = (o.view(shape) for o, shape in zip(
-        out, ((n_pad, mb, wb), (n_pad, wb, mb), (n_pad, wb, wb),
-              (n_pad, wb, wb))))
+    shapes = ((n_pad, mb, wb), (n_pad, wb, mb), (n_pad, wb, wb),
+              (n_pad, wb, wb))
+    if pair:
+        L, U, Li, Ui = (torch.empty(sh, dtype=dtype, device=device)
+                        for sh in shapes)
+    else:
+        L, U, Li, Ui = (o.view(sh) for o, sh in zip(out, shapes))
     rows = torch.arange(mb, device=device)[:, None]
     colsw = torch.arange(wb, device=device)[None, :]
     zero = torch.zeros((), dtype=dtype, device=device)
@@ -613,11 +709,44 @@ def factor_group(g: GroupSpec, vals_ext: torch.Tensor,
                 F[:, :wb, :], zero, out=U)
     Li.copy_(unit_lower_inverse(L[:, :wb, :]))
     Ui.copy_(upper_inverse(U[:, :, :wb]))
+    if pair:
+        for o, c in zip(out, (L, U, Li, Ui)):
+            _encode_into(o, c)
     if mb > wb:
         rb = mb - wb
         off = g.upd_off_global
-        upd_buf[off:off + n_pad * rb * rb].view(n_pad, rb, rb).copy_(
-            F[:, wb:, wb:])
+        sl = upd_buf[..., off:off + n_pad * rb * rb]
+        if pair:
+            _encode_into(sl, F[:, wb:, wb:])
+        else:
+            sl.view(n_pad, rb, rb).copy_(F[:, wb:, wb:])
+    return tiny, nzero
+
+
+def _factor_pair_plain(g: GroupSpec, Fp: torch.Tensor, thresh,
+                       upd_buf: torch.Tensor, out):
+    """factor_group's pair storage on the CPU: the assembled planes Fp
+    (2, n_loc · mb · mb) factored in pair arithmetic (ops/pair_lu), the
+    panels, inverses and update slab written to the planes.  Returns
+    (tiny, nzero)."""
+    mb, wb, n_pad = g.mb, g.wb, g.n_loc
+    F, tiny, nzero = partial_lu_pair_batch(Fp.view(2, n_pad, mb, mb),
+                                           thresh, wb=wb)
+    rows = torch.arange(mb)[:, None]
+    colsw = torch.arange(wb)[None, :]
+    zero = torch.zeros((), dtype=F.dtype)
+    L = torch.where(rows > colsw, F[..., :wb], zero)
+    L[0] += (rows == colsw).to(F.dtype)          # unit diagonal
+    U = torch.where(colsw.T <= torch.arange(mb)[None, :],
+                    F[:, :, :wb, :], zero)
+    for o, p in zip(out, (L, U, unit_lower_inverse_pair(L[:, :, :wb, :]),
+                          upper_inverse_pair(U[..., :wb]))):
+        o.copy_(p.reshape(2, -1))
+    if mb > wb:
+        rb = mb - wb
+        off = g.upd_off_global
+        upd_buf[:, off:off + n_pad * rb * rb].view(2, n_pad, rb, rb).copy_(
+            F[:, :, wb:, wb:])
     return tiny, nzero
 
 
@@ -628,10 +757,10 @@ def _group_views(sched: BatchedSchedule, flats) -> list:
     out = []
     for g in sched.groups:
         n, mb, wb = g.n_loc, g.mb, g.wb
-        out.append((L[g.L_off:g.L_off + n * mb * wb],
-                    U[g.U_off:g.U_off + n * wb * mb],
-                    Li[g.Li_off:g.Li_off + n * wb * wb],
-                    Ui[g.Ui_off:g.Ui_off + n * wb * wb]))
+        out.append((L[..., g.L_off:g.L_off + n * mb * wb],
+                    U[..., g.U_off:g.U_off + n * wb * mb],
+                    Li[..., g.Li_off:g.Li_off + n * wb * wb],
+                    Ui[..., g.Ui_off:g.Ui_off + n * wb * wb]))
     return out
 
 
@@ -641,16 +770,22 @@ class FactorBuffers:
     through the groups in place), the GESP threshold (one float64, read
     by K1 on the device), the (tiny, zero) pivot counters and the four
     panel slabs.  A captured sweep keeps one set as its static tensors;
-    an eager sweep makes a fresh one."""
+    an eager sweep makes a fresh one.  With `pair` (pair storage of a
+    complex `dtype`) the values, the slab and the panel slabs are
+    (2, ·) planes of the real dtype of `dtype`'s precision."""
 
     def __init__(self, sched: BatchedSchedule, nnz: int, dtype,
-                 device):
-        z = dict(dtype=torch_dtype(dtype), device=device)
-        self.vals_ext = torch.zeros(nnz + 1, **z)
-        self.upd = torch.zeros(sched.upd_total + sched.upd_pad, **z)
+                 device, pair: bool = False):
+        self.pair = bool(pair)
+        lead = (2,) if pair else ()
+        z = dict(dtype=torch_dtype(_real_dtype(dtype) if pair else dtype),
+                 device=device)
+        self.vals_ext = torch.zeros(lead + (nnz + 1,), **z)
+        self.upd = torch.zeros(lead + (sched.upd_total + sched.upd_pad,),
+                               **z)
         self.thresh = torch.zeros(1, dtype=torch.float64, device=device)
         self.counts = torch.zeros(2, dtype=torch.int64, device=device)
-        self.flats = tuple(torch.empty(n, **z) for n in (
+        self.flats = tuple(torch.empty(lead + (n,), **z) for n in (
             sched.L_total, sched.U_total, sched.Li_total, sched.Ui_total))
         self.views = _group_views(sched, self.flats)
 
@@ -658,10 +793,18 @@ class FactorBuffers:
         """Fill the inputs of one factorization and clear the rest.
         `vals` (the scaled values in plan COO order) is numpy or a
         tensor, on the host or already on the device; it is cast to the
-        factor dtype on the way in."""
+        factor dtype on the way in (to its planes under pair
+        storage)."""
         if not isinstance(vals, torch.Tensor):
             vals = torch.from_numpy(np.ascontiguousarray(vals))
-        self.vals_ext[:-1].copy_(vals)
+        if self.pair:
+            if vals.is_complex():
+                _encode_into(self.vals_ext[:, :-1], vals)
+            else:
+                self.vals_ext[0, :-1].copy_(vals)
+                self.vals_ext[1, :-1].zero_()
+        else:
+            self.vals_ext[:-1].copy_(vals)
         self.thresh.fill_(thresh)
         self.counts.zero_()
         self.upd.zero_()
@@ -797,14 +940,15 @@ def _staged_factor_segment(sched, members, buf: FactorBuffers) -> None:
         buf.counts += torch.stack((t, z))
 
 
-def _factor_graphs(sched, nnz: int, dtype, device, staged: bool):
-    """The GraphSet of a (schedule, dtype, arm): the staged segments'
-    graphs or the whole-phase graph, with one FactorBuffers."""
-    key = (("staged", np.dtype(dtype).str) if staged
-           else ("phase", np.dtype(dtype).str, "merged"))
+def _factor_graphs(sched, nnz: int, dtype, device, staged: bool,
+                   pair: bool = False):
+    """The GraphSet of a (schedule, dtype, storage, arm): the staged
+    segments' graphs or the whole-phase graph, with one FactorBuffers."""
+    key = (("staged", np.dtype(dtype).str, pair) if staged
+           else ("phase", np.dtype(dtype).str, pair, "merged"))
     return graphs.graph_set(
         sched, key, device,
-        lambda: FactorBuffers(sched, nnz, dtype, device))
+        lambda: FactorBuffers(sched, nnz, dtype, device, pair))
 
 
 def _factor_programs(sched, dtype, staged: bool, buf: FactorBuffers):
@@ -831,17 +975,19 @@ def _factor_sweep(sched, dtype, staged: bool, buf: FactorBuffers,
 
 
 def _staged_factor_run(sched, vals, thresh: float, dtype, device,
-                       staged: bool = True, eager: bool = False):
-    """One factor sweep by the staged or the whole-phase arm.  Returns
-    (flats, counts): the four panel slabs, the caller's own (on the
-    card a copy of the graphs' static slabs), and the (tiny, zero)
-    counters as a device tensor, for the caller to read once."""
+                       staged: bool = True, eager: bool = False,
+                       pair: bool = False):
+    """One factor sweep by the staged or the whole-phase arm, on native
+    or (`pair`) plane storage.  Returns (flats, counts): the four panel
+    slabs, the caller's own (on the card a copy of the graphs' static
+    slabs), and the (tiny, zero) counters as a device tensor, for the
+    caller to read once."""
     if eager or not graphs.on_card(device):
-        buf = FactorBuffers(sched, len(vals), dtype, device)
+        buf = FactorBuffers(sched, len(vals), dtype, device, pair)
         buf.load(vals, thresh)
         _factor_sweep(sched, dtype, staged, buf)
         return buf.flats, buf.counts
-    gset = _factor_graphs(sched, len(vals), dtype, device, staged)
+    gset = _factor_graphs(sched, len(vals), dtype, device, staged, pair)
     buf = gset.static
     with gset.lock:
         buf.load(vals, thresh)
@@ -854,12 +1000,13 @@ def _staged_factor_run(sched, vals, thresh: float, dtype, device,
 
 def capture_staged(plan: FactorPlan, dtype, device) -> int:
     """Capture every staged segment graph of the plan's schedule for
-    `dtype` on the card without running it (utils/warmup.py).  Returns
-    the number of graphs captured now."""
+    `dtype` (and its storage, `_pair_mode`) on the card without running
+    it (utils/warmup.py).  Returns the number of graphs captured now."""
     sched = get_schedule(plan)
     device = torch.device(device)
     sched.to_device(device)
-    gset = _factor_graphs(sched, len(plan.coo_rows), dtype, device, True)
+    gset = _factor_graphs(sched, len(plan.coo_rows), dtype, device, True,
+                          _pair_mode(dtype))
     with gset.lock:
         return sum(gset.capture(key, body) for key, body in
                    _factor_programs(sched, dtype, True, gset.static))
@@ -884,7 +1031,7 @@ class StagedLU:
 
     def flats(self):
         """The DeviceLU form: (L, U, Li, Ui) whole-slab flats."""
-        return tuple(torch.cat([p[i] for p in self.panels])
+        return tuple(torch.cat([p[i] for p in self.panels], dim=-1)
                      for i in range(4))
 
     def held_bytes(self) -> int:
@@ -920,18 +1067,19 @@ class DeviceLU:
         return _group_views(self.schedule, self.flats())
 
 
-def _phase_fns(sched, dtype, device):
-    """The whole-phase programs of a (schedule, dtype): `factor(vals,
-    thresh)` runs the whole factor sweep as one program (on the card
-    one graph, captured once per (schedule, dtype) key) and returns
-    (flats, counts) as `_staged_factor_run` does; the solve of its
-    handles is the packed solve (trisolve.solve_packed), whose graphs
-    belong to the handle whose slabs they read."""
+def _phase_fns(sched, dtype, device, pair: bool):
+    """The whole-phase programs of a (schedule, dtype, storage):
+    `factor(vals, thresh)` runs the whole factor sweep as one program
+    (on the card one graph, captured once per (schedule, dtype,
+    storage) key) and returns (flats, counts) as `_staged_factor_run`
+    does; `solve(lu, b, trans)` is the SLU_TRISOLVE arm's solve of its
+    handles (trisolve.solve), whose graphs belong to the handle whose
+    slabs they read."""
     def factor(vals, thresh, eager=False):
         return _staged_factor_run(sched, vals, thresh, dtype, device,
-                                  staged=False, eager=eager)
+                                  staged=False, eager=eager, pair=pair)
     from . import trisolve
-    return factor, trisolve.solve_packed
+    return factor, trisolve.solve
 
 
 def factorize_device(plan: FactorPlan, scaled_vals: np.ndarray,
@@ -945,9 +1093,11 @@ def factorize_device(plan: FactorPlan, scaled_vals: np.ndarray,
     runs the same bodies eagerly there instead (the oracle of the card
     tests and chip_smoke.py).  Raises ZeroDivisionError on an
     exactly-zero pivot when tiny-pivot replacement is off (the
-    reference's info=i signal)."""
+    reference's info=i signal).  Under SLU_COMPLEX_PAIR=1 a complex
+    `dtype` factors on pair storage: the handle's flats are (2, N)
+    real planes."""
     dtype = np.dtype(dtype)
-    reject_pair_storage(dtype)
+    pair = _pair_mode(dtype)
     sched = get_schedule(plan)
     device = resolve_device(device)
     vals = np.asarray(scaled_vals).astype(dtype)
@@ -957,9 +1107,9 @@ def factorize_device(plan: FactorPlan, scaled_vals: np.ndarray,
     staged = staged_enabled(sched)
     if staged:
         flats, counts = _staged_factor_run(sched, vals, thresh, dtype,
-                                           device, eager=eager)
+                                           device, eager=eager, pair=pair)
     else:
-        factor, _ = _phase_fns(sched, dtype, device)
+        factor, _ = _phase_fns(sched, dtype, device, pair)
         flats, counts = factor(vals, thresh, eager=eager)
     tiny, nzero = counts.tolist()
     if nzero > 0:
@@ -978,10 +1128,41 @@ def factorize_device(plan: FactorPlan, scaled_vals: np.ndarray,
 # the solve entry points
 # --------------------------------------------------------------------
 
+def solve_panels(lu) -> list:
+    """The per-group (L, U, Li, Ui) flats a handle is solved with: its
+    panels, or for a pair-stored handle complex flats decoded from its
+    planes, made once and cached on the handle (`decode_pair` refreshes
+    them in place)."""
+    if not _lu_is_pair(lu):
+        return lu.panels
+    cplx = lu.__dict__.get("_pair_decoded")
+    if cplx is None:
+        cdt = torch_dtype(lu.dtype)
+        cplx = lu.__dict__["_pair_decoded"] = [
+            tuple(torch.empty(p.shape[-1], dtype=cdt, device=p.device)
+                  for p in grp) for grp in lu.panels]
+        decode_pair(lu)
+    return cplx
+
+
+def decode_pair(lu) -> None:
+    """Copy a pair handle's planes into its complex solve flats
+    (`solve_panels`), in place: two strided copies a flat."""
+    for grp, cg in zip(lu.panels, lu.__dict__["_pair_decoded"]):
+        for p, c in zip(grp, cg):
+            r = torch.view_as_real(c)
+            r[:, 0].copy_(p[0])
+            r[:, 1].copy_(p[1])
+
+
 def _solve_device_common(lu, b: np.ndarray, trans: bool,
                          eager: bool = False) -> np.ndarray:
-    """Routed as the reference routes it: a StagedLU through the staged
-    segment sweeps, a DeviceLU through the packed solve."""
+    """Routed as the reference routes it, on the SLU_TRISOLVE arm: a
+    StagedLU through the staged sweeps (per merged segment, or per
+    group on the legacy arm), a DeviceLU through one program for the
+    whole sweep (the packed solve, or the legacy sweep).  A pair-stored
+    handle is solved through its complex decode (`solve_panels`),
+    whatever SLU_COMPLEX_PAIR says now."""
     from . import trisolve
     squeeze = b.ndim == 1
     bb = b[:, None] if squeeze else b
@@ -989,12 +1170,8 @@ def _solve_device_common(lu, b: np.ndarray, trans: bool,
     # factors solves in float64 (the sweep reads the float32 panels),
     # and a complex right-hand side against real factors in complex
     xdt = np.promote_types(lu.dtype, bb.dtype)
-    reject_pair_storage(xdt)
     bt = torch.from_numpy(np.ascontiguousarray(bb.astype(xdt)))
-    if isinstance(lu, StagedLU):
-        X = trisolve.staged_sweeps(lu, bt, trans, eager=eager)
-    else:
-        X = trisolve.solve_packed(lu, bt, trans, eager=eager)
+    X = trisolve.solve(lu, bt, trans, eager=eager)
     out = X.cpu().numpy()
     return out[:, 0] if squeeze else out
 
@@ -1029,8 +1206,8 @@ _DF64_TODO = ("double-word (df64) refinement is not ported yet "
 
 
 class FusedContext:
-    """What the fused steps of one (schedule, factor dtype, arm) share
-    on one device.
+    """What the fused steps of one (schedule, factor dtype, storage,
+    arm) share on one device.
 
     * The factor sweep's buffers: on the card the static FactorBuffers
       of the factor graph set that `factorize` replays too (one capture
@@ -1038,8 +1215,11 @@ class FusedContext:
     * A handle (StagedLU on the staged arm, DeviceLU on the whole-phase
       arm) whose panels are views of those static slabs, not a copy,
       and which is never handed out.
-    * That handle's solve programs per (nrhs, solve dtype), and the
-      refinement programs of the steps (`refinement`).
+    * That handle's solve programs per (nrhs, solve dtype, solve arm),
+      and the refinement programs of the steps (`refinement`).
+    * Under pair storage (`pair`) the handle's complex solve flats
+      (`solve_panels`), refreshed from the planes after every factor
+      sweep by one more program (`decode_pair`).
 
     A call holds `lock` from loading the values to copying out its
     results: a factorization held elsewhere owns a copy of the slabs
@@ -1048,22 +1228,24 @@ class FusedContext:
     of the context's own."""
 
     def __init__(self, plan: FactorPlan, dtype, device, staged: bool,
-                 eager: bool):
+                 eager: bool, pair: bool = False):
         sched = get_schedule(plan)
         sched.to_device(device)          # before any capture
         self.plan, self.sched = plan, sched
         self.dtype = np.dtype(dtype)
         self.device = torch.device(device)
         self.staged = bool(staged)
+        self.pair = bool(pair)
         self.eager = eager or not graphs.on_card(device)
         nnz = len(plan.coo_rows)
         if self.eager:
             self.fset = None
-            self.buf = FactorBuffers(sched, nnz, self.dtype, device)
+            self.buf = FactorBuffers(sched, nnz, self.dtype, device,
+                                     self.pair)
             self.lock = threading.Lock()
         else:
             self.fset = _factor_graphs(sched, nnz, self.dtype, device,
-                                       self.staged)
+                                       self.staged, self.pair)
             self.buf = self.fset.static
             self.lock = self.fset.lock
         if self.staged:
@@ -1072,25 +1254,32 @@ class FusedContext:
         else:
             self.lu = DeviceLU(plan, sched, self.dtype, *self.buf.flats,
                                tiny_pivots=0)
+        if self.pair:
+            solve_panels(self.lu)       # allocated before any capture
         self._solvers: dict = {}
         self._refinements: dict = {}
 
     def factor(self, scaled, thresh: float) -> None:
         """Factor the scaled values (plan COO order, a device tensor or
-        numpy) into the static slabs; the pivot counters stay in
-        `buf.counts`.  The caller holds `lock`."""
+        numpy) into the static slabs, and under pair storage decode
+        them into the handle's complex solve flats; the pivot counters
+        stay in `buf.counts`.  The caller holds `lock`."""
         self.buf.load(scaled, thresh)
         _factor_sweep(self.sched, self.dtype, self.staged, self.buf,
                       self.fset)
+        if self.pair:
+            self.run(("decode_pair",), partial(decode_pair, self.lu))
 
     def solver(self, R: int, dtype: torch.dtype):
-        """The handle's solve programs at nrhs R in `dtype` (their runs
-        are serialised by `lock`: the handle is the context's own)."""
+        """The handle's solve programs at nrhs R in `dtype` on the
+        SLU_TRISOLVE arm (their runs are serialised by `lock`: the
+        handle is the context's own)."""
         from . import trisolve
-        key = (R, dtype)
+        arm = trisolve.trisolve_mode()
+        key = (R, dtype, arm)
         if key not in self._solvers:
             self._solvers[key] = trisolve.solve_programs(
-                self.lu, R, dtype, False, eager=self.eager)
+                self.lu, R, dtype, False, eager=self.eager, arm=arm)
         return self._solvers[key]
 
     def refinement(self, key, make):
@@ -1123,14 +1312,18 @@ _fused_lock = threading.Lock()
 
 def fused_context(plan: FactorPlan, dtype, device, staged: bool,
                   eager: bool = False) -> FusedContext:
-    """The plan's FusedContext for (factor dtype, arm, device), made at
-    first use and cached on its schedule."""
+    """The plan's FusedContext for (factor dtype, storage, arm,
+    device), made at first use and cached on its schedule; the storage
+    is `_pair_mode(dtype)`."""
     sched = get_schedule(plan)
-    key = (np.dtype(dtype).str, bool(staged), str(device), bool(eager))
+    pair = _pair_mode(dtype)
+    key = (np.dtype(dtype).str, pair, bool(staged), str(device),
+           bool(eager))
     with _fused_lock:
         cache = sched.__dict__.setdefault("_fused", {})
         if key not in cache:
-            cache[key] = FusedContext(plan, dtype, device, staged, eager)
+            cache[key] = FusedContext(plan, dtype, device, staged, eager,
+                                      pair)
         return cache[key]
 
 
@@ -1138,9 +1331,7 @@ def _to_device(a, device, what: str) -> torch.Tensor:
     """numpy or a tensor on `device` (a floating or complex dtype)."""
     t = (a if isinstance(a, torch.Tensor)
          else torch.from_numpy(np.ascontiguousarray(a))).to(device)
-    if t.is_complex():
-        reject_pair_storage(np.complex128)
-    elif not t.is_floating_point():
+    if not (t.is_complex() or t.is_floating_point()):
         raise TypeError(f"{what} must be floating point or complex, "
                         f"got {t.dtype}")
     return t
@@ -1178,9 +1369,9 @@ def make_fused_step(plan: FactorPlan, dtype=np.float64, device=None,
     factor ordering, shape (n, nrhs), numpy or tensors; x comes back on
     the step's device in the promoted dtype of the factors and b (the
     solve promotes, it does not cast).  No zero-pivot check: as in the
-    reference, a singular factor gives a non-finite x."""
+    reference, a singular factor gives a non-finite x.  Under
+    SLU_COMPLEX_PAIR=1 a complex `dtype` factors on pair storage."""
     dtype = np.dtype(dtype)
-    reject_pair_storage(dtype)
     dev = _fused_device(plan, device)
     ctx = fused_context(plan, dtype, dev, staged_enabled(get_schedule(plan)),
                         eager)
@@ -1343,13 +1534,14 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
     the refine dtype, the step budget and the SpMV layout resolve as
     the reference resolves them; where the reference would run its
     double-word lane this raises NotImplementedError (ROADMAP queue 1
-    item 11).  A complex `dtype` factors the complex system natively
-    and refines in the complex dtype of the refine precision."""
+    item 11).  A complex `dtype` factors the complex system natively,
+    or on pair storage under SLU_COMPLEX_PAIR=1, and refines in the
+    complex dtype of the refine precision."""
     from ..options import IterRefine
     from ..precision.policy import resolve_residual_mode
+    from . import trisolve
     from .spmv import ell_from_csr, spmv_layout
     dtype = np.dtype(dtype)
-    reject_pair_storage(dtype)
     sched = get_schedule(plan)
     # ---- the residual mode (precision/policy.py), resolved as the
     # reference resolves it ----
@@ -1412,7 +1604,10 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
     def step(vals, b):
         v, bt = _fused_inputs(plan, vals, b, dev, dtype)
         R = bt.shape[1]
-        key = (R, rdt.str, layout, max_steps)
+        # the solve arm is read per call, as the reference's staged
+        # step reads it; it keys the refinement state, whose solve
+        # programs are the arm's
+        key = (R, rdt.str, layout, max_steps, trisolve.trisolve_mode())
         with ctx.lock:
             st = ctx.refinement(key, lambda: _Refinement(
                 ctx, R, rdt, layout, max_steps))

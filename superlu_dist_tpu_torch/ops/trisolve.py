@@ -24,8 +24,22 @@ through one program per merged forward segment and one per backward
 segment (`staged_sweeps`), a DeviceLU through one packed program for
 the whole solve (`solve_packed`).  On the card a program is a CUDA
 graph (ops/graphs.py) owned by the factor handle, since it reads that
-handle's panels, and keyed by (nrhs, trans, rhs dtype); on the CPU the
-same bodies run eagerly.
+handle's panels, and keyed by (nrhs, trans, rhs dtype, arm); on the
+CPU the same bodies run eagerly.
+
+SLU_TRISOLVE=legacy (`trisolve_mode`) selects the reference's legacy
+level sweep instead: one solution array, per group a row gather, the
+two panel products and an `index_add_` of the off-diagonal update
+(`_legacy_fwd`, `_legacy_bwd`; reference `ops/batched.py`
+`_fwd_group_impl` … `_bwd_group_T_impl`).  Those are products the
+reference computes outside any Pallas kernel, so that arm launches no
+K3.  A StagedLU runs it as one program per group and direction, as the
+reference's staged dispatch does, a DeviceLU as one program.  Complex
+systems sweep natively in complex on both arms.
+
+A pair-stored handle (SLU_COMPLEX_PAIR=1: (2, N) real planes) is
+solved through complex panels decoded from its planes once per
+factorization (`batched.solve_panels`); its planes never reach a sweep.
 """
 
 from __future__ import annotations
@@ -42,6 +56,24 @@ from .. import flags
 from ..device import upload_int64
 from . import graphs
 from .lsum import lsum_panel
+
+
+def trisolve_mode() -> str:
+    """The solve arm: 'merged' (the packed lsum sweep) or 'legacy' (the
+    level sweep).  SLU_TRISOLVE ∈ {auto, merged, legacy}; auto and
+    anything but legacy|0|off resolve to merged, as in the reference."""
+    v = flags.env_str("SLU_TRISOLVE", "auto").strip().lower()
+    if v in ("legacy", "0", "off"):
+        return "legacy"
+    return "merged"
+
+
+def _require_merged() -> None:
+    """The packed bodies' guard: under SLU_TRISOLVE=legacy a packed
+    sweep is never run in the legacy arm's place."""
+    if trisolve_mode() != "merged":
+        raise RuntimeError("SLU_TRISOLVE=legacy, but a packed (merged) "
+                           "sweep was about to run")
 
 
 def merge_cells_limit() -> int:
@@ -105,6 +137,23 @@ class TrisolveSchedule:
             idxs = [tuple(ts[3 * i:3 * i + 3])
                     for i in range(len(self.groups))]
             self._dev[key] = (idxs, ts[-1])
+        return self._dev[key]
+
+    def legacy_dev(self, device) -> list:
+        """The legacy sweep's (cols, struct) per group, flat int64 on
+        `device`: the group's column rows (trim·wb) and struct rows
+        (trim·rb), padding -> n (the solution array's zero row)."""
+        if self._dev is None:
+            self._dev = {}
+        key = ("legacy", str(torch.device(device)))
+        if key not in self._dev:
+            arrays = []
+            for g, gs in zip(self.sched.groups, self.groups):
+                arrays += [gs.b_idx.reshape(-1),
+                           np.asarray(g.struct_idx)[:gs.trim].reshape(-1)]
+            ts = upload_int64(arrays, device)
+            self._dev[key] = [tuple(ts[2 * i:2 * i + 2])
+                              for i in range(len(self.groups))]
         return self._dev[key]
 
 
@@ -227,7 +276,11 @@ def get_trisolve(sched) -> TrisolveSchedule:
 
 def _pack(g, t: int, L, U, Li, Ui) -> tuple:
     """(Li, L21, Ui, U12) of one group's panels, dead lanes dropped: no
-    copies, L21 and U12 are strided views."""
+    copies, L21 and U12 are strided views.  Raises on pair-stored
+    (2, N) planes, which are solved through their complex decode."""
+    if L.dim() != 1:
+        raise TypeError("pair-stored factor planes reached the native "
+                        "solve; solve them through batched.solve_panels")
     wb, mb = g.wb, g.mb
     Lp = L.view(g.n_loc, mb, wb)
     Up = U.view(g.n_loc, wb, mb)
@@ -251,14 +304,13 @@ def pack_panels_staged(ts: TrisolveSchedule, panels) -> list:
 def get_packs(lu) -> list:
     """Per-handle packed panels (a StagedLU's or a DeviceLU's), built
     once per factorization on the first solve and cached on the
-    handle."""
+    handle; a pair-stored handle's are views of its complex decode."""
     packs = lu.__dict__.get("_packs")
     if packs is None:
-        from .batched import StagedLU
+        from .batched import solve_panels
         ts = get_trisolve(lu.schedule)
-        packs = lu.__dict__["_packs"] = (
-            pack_panels_staged(ts, lu.panels) if isinstance(lu, StagedLU)
-            else pack_panels(ts, lu.flats()))
+        packs = lu.__dict__["_packs"] = pack_panels_staged(
+            ts, solve_panels(lu))
     return packs
 
 
@@ -283,15 +335,20 @@ class SolveBuffers:
     the solution X.  A captured solve keeps one set as its static
     tensors (the sentinels are never written, so they stay zero); an
     eager solve makes a fresh one.  The reference's
-    `init_lsum_buffers`."""
+    `init_lsum_buffers`.  The legacy arm (`legacy`) needs only B, its
+    working copy W (n + 1 rows, row n the padding target) and X."""
 
-    def __init__(self, ts: TrisolveSchedule, R: int, dtype, device):
+    def __init__(self, ts: TrisolveSchedule, R: int, dtype, device,
+                 legacy: bool = False):
         z = dict(dtype=dtype, device=device)
         n = ts.sched.n
         self.B = torch.zeros((n + 1, R), **z)
-        self.UPD = torch.zeros((ts.u_total + 1, R), **z)
-        self.Y = torch.zeros((ts.y_total + 1, R), **z)
-        self.XF = torch.zeros((ts.y_total + 1, R), **z)
+        if legacy:
+            self.W = torch.zeros((n + 1, R), **z)
+        else:
+            self.UPD = torch.zeros((ts.u_total + 1, R), **z)
+            self.Y = torch.zeros((ts.y_total + 1, R), **z)
+            self.XF = torch.zeros((ts.y_total + 1, R), **z)
         self.X = torch.empty((n, R), **z)
 
     def load(self, b: torch.Tensor) -> None:
@@ -366,6 +423,7 @@ def _staged_fwd_segment(ts, packs, idxs, members, bufs: SolveBuffers,
                         trans: bool) -> None:
     """One forward segment: its members' forward steps in order, UPD
     and Y updated in place."""
+    _require_merged()
     state = (bufs.B, bufs.UPD, bufs.Y)
     for i in members:
         _fwd_member(state, ts.sched.groups[i], ts.groups[i], packs[i],
@@ -389,7 +447,8 @@ def _staged_programs(trans: bool):
     """The staged solve's program list: one program per merged forward
     segment, one per backward segment (in reverse), and the final
     gather."""
-    def programs(ts, packs, idxs, fin):
+    def programs(ts, packs, device):
+        idxs, fin = ts.dev(device)
         fwd = [(("fwd", tuple(seg), seg_metas(ts, seg)),
                 partial(_staged_fwd_segment, ts, packs, idxs, seg,
                         trans=trans))
@@ -403,30 +462,32 @@ def _staged_programs(trans: bool):
 
 
 class SolvePrograms:
-    """One handle's solve at one (nrhs, trans, rhs dtype): the programs
-    that `programs(ts, packs, idxs, fin)` lists — [(key, body(bufs))],
-    in order — on one set of SolveBuffers.  The caller fills
-    `bufs.B[:-1]`, calls `run()` and reads `bufs.X`.  On the card the
-    programs are the handle's graphs for that key (captured at first
-    use; the buffers are their static tensors, and the caller holds
-    `lock` from filling B to reading X); on the CPU, or with `eager`,
-    they run eagerly on buffers of this object's own."""
+    """One handle's solve at one (nrhs, trans, rhs dtype, arm): the
+    programs that `programs(ts, packs, device)` lists — [(key,
+    body(bufs))], in order — on one set of SolveBuffers.  The caller
+    fills `bufs.B[:-1]`, calls `run()` and reads `bufs.X`.  On the card
+    the programs are the handle's graphs for that key (captured at
+    first use; the buffers are their static tensors, and the caller
+    holds `lock` from filling B to reading X); on the CPU, or with
+    `eager`, they run eagerly on buffers of this object's own."""
 
     def __init__(self, lu, R: int, dtype, trans: bool, programs,
-                 eager: bool = False):
+                 eager: bool = False, arm: str = "merged"):
         ts = get_trisolve(lu.schedule)
         packs = get_packs(lu)
         device = lu.device
-        idxs, fin = ts.dev(device)       # uploaded before any capture
-        self.progs = programs(ts, packs, idxs, fin)
+        # index sets uploaded before any capture
+        self.progs = programs(ts, packs, device)
+        legacy = arm == "legacy"
         if eager or not graphs.on_card(device):
             self.gset = None
-            self.bufs = SolveBuffers(ts, R, dtype, device)
+            self.bufs = SolveBuffers(ts, R, dtype, device, legacy)
             self.lock = threading.Lock()
         else:
             self.gset = graphs.graph_set(
-                lu, (R, bool(trans), str(dtype), _limits_key()), device,
-                lambda: SolveBuffers(ts, R, dtype, device))
+                lu, (R, bool(trans), str(dtype), _limits_key(), arm),
+                device, lambda: SolveBuffers(ts, R, dtype, device,
+                                             legacy))
             self.bufs = self.gset.static
             self.lock = self.gset.lock
 
@@ -438,22 +499,43 @@ class SolvePrograms:
                 self.gset.run(key, lambda body=body: body(self.bufs))
 
 
-def solve_programs(lu, R: int, dtype, trans: bool = False,
-                   eager: bool = False) -> SolvePrograms:
-    """The solve programs of a handle as the reference routes them: a
-    StagedLU through the staged segment sweeps, any other handle
-    through the packed solve."""
+def _programs_for(lu, trans: bool, arm: str):
+    """The program list of a handle on `arm` as the reference routes
+    it: a StagedLU through per-segment (merged) or per-group (legacy)
+    programs, any other handle through one program for the sweep."""
     from .batched import StagedLU
-    programs = (_staged_programs(trans) if isinstance(lu, StagedLU)
-                else _solve_packed_fn(trans))
-    return SolvePrograms(lu, R, dtype, trans, programs, eager)
+    staged = isinstance(lu, StagedLU)
+    if arm == "legacy":
+        return _legacy_programs(trans, staged)
+    return _staged_programs(trans) if staged else _solve_packed_fn(trans)
+
+
+def solve_programs(lu, R: int, dtype, trans: bool = False,
+                   eager: bool = False, arm: str | None = None
+                   ) -> SolvePrograms:
+    """The solve programs of a handle on `arm` (default: the
+    SLU_TRISOLVE arm), routed as `_programs_for` routes them."""
+    arm = trisolve_mode() if arm is None else arm
+    return SolvePrograms(lu, R, dtype, trans,
+                         _programs_for(lu, trans, arm), eager, arm)
+
+
+def solve(lu, b: torch.Tensor, trans: bool,
+          eager: bool = False) -> torch.Tensor:
+    """Solve with a handle on the SLU_TRISOLVE arm: b (n, nrhs) in
+    factor ordering and the solve dtype.  Returns the solution, the
+    caller's own."""
+    arm = trisolve_mode()
+    return _run_solve(lu, b, trans, eager, _programs_for(lu, trans, arm),
+                      arm)
 
 
 def _run_solve(lu, b: torch.Tensor, trans: bool, eager: bool,
-               programs) -> torch.Tensor:
+               programs, arm: str = "merged") -> torch.Tensor:
     """Solve with b (n, nrhs, in the solve dtype) through `programs`
     (see SolvePrograms).  Returns the solution, the caller's own."""
-    sp = SolvePrograms(lu, b.shape[-1], b.dtype, trans, programs, eager)
+    sp = SolvePrograms(lu, b.shape[-1], b.dtype, trans, programs, eager,
+                       arm)
     with sp.lock:
         sp.bufs.load(b)
         sp.run()
@@ -484,7 +566,10 @@ def _solve_packed_fn(trans: bool):
     (schedule, dtype); here the program's graphs read one handle's
     panels, so `_run_solve` keeps them on the handle per (nrhs, trans,
     rhs dtype)."""
-    return lambda *ctx: [(("packed",), partial(sweep, *ctx, trans))]
+    def programs(ts, packs, device):
+        idxs, fin = ts.dev(device)
+        return [(("packed",), partial(sweep, ts, packs, idxs, fin, trans))]
+    return programs
 
 
 def solve_packed(lu, b: torch.Tensor, trans: bool,
@@ -493,3 +578,103 @@ def solve_packed(lu, b: torch.Tensor, trans: bool,
     as one program over the handle's packed panels.  b (n, nrhs) in
     factor ordering and the solve dtype."""
     return _run_solve(lu, b, trans, eager, _solve_packed_fn(trans))
+
+
+# --------------------------------------------------------------------
+# the legacy level sweep (SLU_TRISOLVE=legacy)
+# --------------------------------------------------------------------
+
+def _legacy_fwd(W: torch.Tensor, g, gs, pack, idx, trans: bool) -> None:
+    """One group's forward step on the solution array W (n + 1, R), in
+    place: xb = W[cols], y = Li·xb (Uiᵀ·xb with `trans`) written back to
+    W[cols], then W[struct] −= L21·y (U12ᵀ·y) by `index_add_`.  Padding
+    rows point at W's row n, which every padding product leaves zero
+    (the padded panel rows and columns are zero)."""
+    cols, struct = idx
+    R, dt = W.shape[-1], W.dtype
+    t, wb = gs.trim, g.wb
+    Li_p, L21_p, Ui_p, U12_p = pack
+    xb = W.index_select(0, cols).view(t, wb, R)
+    if trans:
+        y = torch.bmm(Ui_p.to(dt).transpose(1, 2), xb)
+    else:
+        y = torch.bmm(Li_p.to(dt), xb)
+    W.index_copy_(0, cols, y.reshape(-1, R))
+    if g.mb > wb:
+        if trans:
+            upd = torch.bmm(U12_p.to(dt).transpose(1, 2), y)
+        else:
+            upd = torch.bmm(L21_p.to(dt), y)
+        W.index_add_(0, struct, upd.reshape(-1, R), alpha=-1)
+
+
+def _legacy_bwd(W: torch.Tensor, g, gs, pack, idx, trans: bool) -> None:
+    """One group's backward step on W, in place: rhs = W[cols] −
+    U12·W[struct] (L21ᵀ·W[struct] with `trans`), then W[cols] = Ui·rhs
+    (Liᵀ·rhs)."""
+    cols, struct = idx
+    R, dt = W.shape[-1], W.dtype
+    t, wb = gs.trim, g.wb
+    Li_p, L21_p, Ui_p, U12_p = pack
+    rhs = W.index_select(0, cols).view(t, wb, R)
+    if g.mb > wb:
+        xs = W.index_select(0, struct).view(t, g.mb - wb, R)
+        if trans:
+            rhs = rhs - torch.bmm(L21_p.to(dt).transpose(1, 2), xs)
+        else:
+            rhs = rhs - torch.bmm(U12_p.to(dt), xs)
+    if trans:
+        x1 = torch.bmm(Li_p.to(dt).transpose(1, 2), rhs)
+    else:
+        x1 = torch.bmm(Ui_p.to(dt), rhs)
+    W.index_copy_(0, cols, x1.reshape(-1, R))
+
+
+def _legacy_steps(ts, packs, lidx, members, bufs: SolveBuffers,
+                  trans: bool, bwd: bool) -> None:
+    """The forward steps of `members` in order, or their backward steps
+    in reverse order."""
+    step = _legacy_bwd if bwd else _legacy_fwd
+    for i in (reversed(members) if bwd else members):
+        step(bufs.W, ts.sched.groups[i], ts.groups[i], packs[i], lidx[i],
+             trans)
+
+
+def _legacy_load(bufs: SolveBuffers) -> None:
+    bufs.W.copy_(bufs.B)
+
+
+def _legacy_out(bufs: SolveBuffers) -> None:
+    bufs.X.copy_(bufs.W[:-1])
+
+
+def _legacy_programs(trans: bool, staged: bool):
+    """The legacy sweep's program list: the load of W, then one program
+    per group forward and one per group backward (`staged`, the
+    reference's per-group staged dispatch) or one for the whole sweep,
+    then the copy-out."""
+    def programs(ts, packs, device):
+        lidx = ts.legacy_dev(device)
+        every = list(range(len(ts.groups)))
+        if staged:
+            body = ([(("legacy_fwd", i), [i], False) for i in every]
+                    + [(("legacy_bwd", i), [i], True)
+                       for i in reversed(every)])
+        else:
+            body = [(("legacy_fwd",), every, False),
+                    (("legacy_bwd",), every, True)]
+        steps = [(key, partial(_legacy_steps, ts, packs, lidx, members,
+                               trans=trans, bwd=bwd))
+                 for key, members, bwd in body]
+        if not staged:
+            # the whole sweep is one program, as the reference's
+            # whole-phase solve is
+            def whole(bufs, steps=steps):
+                _legacy_load(bufs)
+                for _, fn in steps:
+                    fn(bufs)
+                _legacy_out(bufs)
+            return [(("legacy",), whole)]
+        return ([(("legacy_load",), _legacy_load)] + steps
+                + [(("legacy_out",), _legacy_out)])
+    return programs

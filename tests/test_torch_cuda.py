@@ -1068,3 +1068,111 @@ def test_host_and_torch_backends_agree_complex_on_card(card):
     assert dt.dtype == np.complex128
     assert np.max(np.abs(dh - dt)) <= 1e-10 * np.max(np.abs(dh))
     assert sh.tiny_pivots == stt.tiny_pivots
+
+
+# --------------------------------------------------------------------
+# the core's last arms: level merging, the legacy sweep, pair storage
+# --------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N,mb,wb", [(6, 3072, 512), (96, 144, 32)])
+def test_panel_lu_kernel_at_merged_shapes(card, dtype, N, mb, wb):
+    """K1 at the merged schedules' new shapes (laplacian_3d(48)'s
+    (6, 3072, 512) and convection_diffusion_2d(200)'s (96, 144, 32), a
+    width no tile divides, in the large regime in float64) against its
+    plain version, counts equal."""
+    _, F1, F2, c1, c2 = _k1_case(card, dtype, N, mb, wb, 1e-3)
+    assert c1 == c2 == (1, 0)
+    assert _rel(F1, F2) < TOL[dtype]
+
+
+@pytest.mark.parametrize("staged", ["1", "0"])
+def test_merged_gssvx_on_card(card, monkeypatch, staged):
+    """gssvx with SLU_LEVEL_MERGE=1 on the card, staged and whole-phase
+    arms: the unmerged solution to 1e-10, fewer groups, equal tiny
+    counts, every kernel launched, the graphs' slabs equal the eager
+    loop's."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
+    a = laplacian_3d(16)
+    xt = np.random.default_rng(5).standard_normal(a.n)
+    b = a.to_scipy() @ xt
+    monkeypatch.setenv("SLU_STAGED", staged)
+    x0, lu0, s0 = st.gssvx(st.Options(), a, b)
+    monkeypatch.setenv("SLU_LEVEL_MERGE", "1")
+    monkeypatch.setenv("SLU_LEVEL_MERGE_LIMIT", "1e9")
+    for f in _complex_counters():
+        f.launches = 0
+    x1, lu1, s1 = st.gssvx(st.Options(), a, b)
+    assert all(f.launches > 0 for f in _complex_counters())
+    assert len(lu1.device_lu.schedule.groups) < len(
+        lu0.device_lu.schedule.groups)
+    assert np.max(np.abs(x1 - x0)) <= 1e-10 * np.max(np.abs(x0))
+    assert s1.tiny_pivots == s0.tiny_pivots
+    plan = lu1.plan
+    eager = batched.factorize_device(plan, plan.scaled_values(a),
+                                     eager=True)
+    for p, q in zip(lu1.device_lu.flats(), eager.flats()):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("staged", ["1", "0"])
+def test_legacy_sweep_on_card(card, monkeypatch, staged, trans):
+    """SLU_TRISOLVE=legacy on the card (graphs): the packed solve's x to
+    1e-10 at nrhs 8, no K3 launch, and equal to its own eager run to
+    1e-12 (index_add_ sums in no fixed order)."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched, lsum
+    from superlu_dist_tpu_torch.utils.testmat import convection_diffusion_2d
+    a = convection_diffusion_2d(40)
+    monkeypatch.setenv("SLU_STAGED", staged)
+    lu = st.factorize(a).device_lu
+    b = np.random.default_rng(6).standard_normal((a.n, 8))
+    solve = batched.solve_device_trans if trans else batched.solve_device
+    packed = solve(lu, b)
+    monkeypatch.setenv("SLU_TRISOLVE", "legacy")
+    lsum.lsum_panel.launches = 0
+    legacy = solve(lu, b)
+    legacy2 = solve(lu, b)
+    eager = solve(lu, b, eager=True)
+    assert lsum.lsum_panel.launches == 0
+    s = np.max(np.abs(packed))
+    assert np.max(np.abs(legacy - packed)) <= 1e-10 * s
+    assert np.max(np.abs(legacy2 - eager)) <= 1e-12 * s
+
+
+def test_pair_factorization_on_card_matches_pair_lu(card, monkeypatch):
+    """Pair storage on the card: K1's complex lane and K2's real lane
+    launched, the handle's planes equal to the CPU pair factorization
+    (ops/pair_lu's arithmetic through the plain versions) to 1e-10, and
+    gssvx's x to the native path's to 1e-10, also after the flag is
+    unset (FACTORED)."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched, ea_scatter, panel_lu
+    from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d
+    a = helmholtz_2d(40)
+    rng = np.random.default_rng(7)
+    xt = rng.standard_normal(a.n) + 1j * rng.standard_normal(a.n)
+    b = a.to_scipy() @ xt
+    x0, _, _ = st.gssvx(st.Options(), a, b)
+    monkeypatch.setenv("SLU_COMPLEX_PAIR", "1")
+    for f in _complex_counters():
+        f.launches = 0
+        f.lanes.clear()
+    x1, lu, stats = st.gssvx(st.Options(), a, b)
+    assert set(panel_lu.partial_lu_batch.lanes) == {"c128"}
+    assert set(ea_scatter.ea_scatter_add.lanes) == {"f64"}
+    assert stats.berr <= 64 * np.finfo(np.float64).eps
+    assert np.max(np.abs(x1 - x0)) <= 1e-10 * np.max(np.abs(x0))
+    plan = lu.plan
+    cpu = batched.factorize_device(
+        st.plan_factorization(a, device="cpu"), plan.scaled_values(a),
+        np.complex128, "cpu")
+    for p, q in zip(lu.device_lu.flats(), cpu.flats()):
+        assert p.dim() == q.dim() == 2
+        assert _rel(p.cpu(), q) < 1e-10
+    monkeypatch.delenv("SLU_COMPLEX_PAIR")
+    x2, _, _ = st.gssvx(st.Options(fact=st.Fact.FACTORED), a, b, lu=lu)
+    assert np.max(np.abs(x2 - x0)) <= 1e-10 * np.max(np.abs(x0))

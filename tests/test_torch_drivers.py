@@ -95,20 +95,23 @@ def test_pddrive_verbose_matches_reference_describe(matfile, capsys):
 ])
 def test_pddrive_refusals_name_their_item(matfile, tmp_path, capsys,
                                           monkeypatch, argv, item):
-    """Multi-GPU flags name item 15; a complex file runs natively, and
-    under SLU_COMPLEX_PAIR=1 (pair storage, not ported) is refused
-    naming item 10b."""
+    """Multi-GPU flags name item 15.  A complex file runs natively, and
+    under SLU_COMPLEX_PAIR=1 on pair storage (item 10, 10b), which the
+    output names: exit 0, error and residual at rounding level."""
     import scipy.io
     from superlu_dist_tpu_torch.drivers import pddrive
     from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d
     if argv[0] == "COMPLEX":
         monkeypatch.setenv("SLU_COMPLEX_PAIR", "1")
-        item = "item 10b"
         p = tmp_path / "h.mtx"
         scipy.io.mmwrite(str(p), helmholtz_2d(4).to_scipy())
-        argv = [str(p)] + argv[1:]
-    else:
-        argv = [matfile] + argv
+        rc, out, err = _run(pddrive.main, [str(p)] + argv[1:], capsys)
+        assert rc == 0 and "Traceback" not in err
+        assert "complex storage: pair planes" in out
+        e, r = _numbers(out)
+        assert e <= 1e-10 and r <= 1e-13
+        return
+    argv = [matfile] + argv
     rc, out, err = _run(pddrive.main, argv, capsys)
     assert rc != 0
     assert item in err and "Traceback" not in err

@@ -336,18 +336,28 @@ def test_resid_fn_matches_reference():
 
 
 def test_complex_names_item_10(monkeypatch):
-    """Complex dtypes run natively; under SLU_COMPLEX_PAIR=1 (pair
-    storage, ROADMAP item 10b, not ported) make_fused_solver and
-    make_fused_step refuse a complex dtype, and a step refuses complex
-    values, naming the item."""
+    """Complex dtypes run natively, and under SLU_COMPLEX_PAIR=1 (pair
+    storage, ROADMAP item 10b) make_fused_solver and make_fused_step
+    factor a complex dtype on planes, to the native steps' x within
+    1e-10 relative; a real step still refuses complex values."""
     from superlu_dist_tpu_torch.ops import batched as tb
     _, pt, _, at = _plans("lap2d12")
     step = tb.make_fused_solver(pt, dtype="float64", device="cpu")
+    vals = at.data.astype(np.complex128) * (1 + 0.5j)
+    b = _rhs(at.n, 1) + 1j * _rhs(at.n, 1, seed=1)
+    bf = torch.from_numpy(b)
+    native = [tb.make_fused_solver(pt, dtype=np.complex128,
+                                   device="cpu")(vals, b)[0],
+              tb.make_fused_step(pt, dtype=np.complex128,
+                                 device="cpu")(vals, bf)]
     monkeypatch.setenv("SLU_COMPLEX_PAIR", "1")
-    for make in (tb.make_fused_solver, tb.make_fused_step):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            make(pt, dtype=np.complex128, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    pair = [tb.make_fused_solver(pt, dtype=np.complex128, device="cpu"),
+            tb.make_fused_step(pt, dtype=np.complex128, device="cpu")]
+    assert all(s.context.pair for s in pair)
+    for x0, x1 in zip(native, (pair[0](vals, b)[0], pair[1](vals, bf))):
+        x0, x1 = x0.numpy(), x1.numpy()
+        assert np.max(np.abs(x1 - x0)) <= 1e-10 * np.max(np.abs(x0))
+    with pytest.raises(TypeError, match="complex values"):
         step(at.data.astype(np.complex128), _rhs(at.n, 1))
 
 

@@ -101,16 +101,21 @@ def test_lu_from_arrays_refuses_silent_cpu(monkeypatch):
 
 
 def test_complex_refused_with_roadmap_pointer(monkeypatch):
-    """Native complex systems run; pair storage (SLU_COMPLEX_PAIR=1)
-    is not ported, and a complex system under it raises naming its
-    ROADMAP item instead of running native storage silently."""
+    """Pair storage (SLU_COMPLEX_PAIR=1, ROADMAP item 10b) runs: a
+    complex system under it factors on (2, N) real planes, never on
+    native storage in their place, and solves to the native complex
+    path's x to 1e-10 relative."""
     import superlu_dist_tpu_torch as st
     from superlu_dist_tpu_torch.utils.testmat import helmholtz_2d
     a = helmholtz_2d(4)
+    b = np.ones(a.n, complex)
+    x0, lu0, _ = st.gssvx(st.Options(), a, b, device="cpu")
     monkeypatch.setenv("SLU_COMPLEX_PAIR", "1")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 10b"):
-        st.gssvx(st.Options(), a, np.ones(a.n, complex), device="cpu")
+    x1, lu1, _ = st.gssvx(st.Options(), a, b, device="cpu")
+    assert lu0.device_lu.panels[0][0].dim() == 1
+    assert lu1.device_lu.panels[0][0].dim() == 2
+    assert not lu1.device_lu.panels[0][0].is_complex()
+    assert np.max(np.abs(x1 - x0)) <= 1e-10 * np.max(np.abs(x0))
 
 
 def test_cuda_wrappers_refuse_non_cuda_tensors():
