@@ -7,7 +7,7 @@
 
 Phases, each of which raises (non-zero exit) on failure:
   1. card      — name, power limit, torch and CUDA versions;
-  2. build     — K1–K3 (superlu_dist_tpu_torch/csrc/*.cu) with nvcc for
+  2. build     — K1–K4 (superlu_dist_tpu_torch/csrc/*.cu) with nvcc for
                  sm_90a, one nvcc per source, all started together;
   3. kernels   — each kernel against its plain PyTorch version on the
                  card, float32 and float64, at shapes taken from the
@@ -173,7 +173,35 @@ Phases, each of which raises (non-zero exit) on failure:
                  captured); at (2, 1024, 512) the copy into the complex
                  working front, K1 c128 and the copies back to planes,
                  each timed apart;
- 13. the kernels line, the card line, and the contract line last.  Each
+ 13. precision — the precision subsystem:
+                 (a) gssvx(Options(factor_dtype="bfloat16")) on
+                 laplacian_3d(48) (SLU_PREC_LADDER set to the default
+                 ladder for this drive only): launches per lane (K1 and
+                 K2 bf16, K3 bf16_f64 > 0), the escalation hops and their
+                 triggers (the first bfloat16 -> float32), the FACT and
+                 FACT_ESC walls, berr ≤ 64·eps(f64); (a2) a bfloat16
+                 factor of the same system refined on the card through
+                 the doubleword fused solver at nrhs 1 and 64: K3's
+                 bf16_f32 lane and K4 launched, berr ≤ DF64_EPS, the
+                 second call at each nrhs capturing nothing;
+                 (b) make_fused_solver(plan, "float32",
+                 residual_mode="doubleword") on laplacian_3d(48) and
+                 convection_diffusion_2d(200) (the whole-phase arm), at
+                 nrhs 1 and 64, against the fp64-residual lane on the same
+                 values in turns: first and later walls, graphs captured
+                 (0 after the first), steps, berr ≤ DF64_EPS (fp64 lane ≤
+                 64·eps(f64)), the error against x_true of both, K1–K3
+                 and K4 launches (K4 > 0 on the doubleword lane), resident
+                 and peak bytes;
+                 then K4 against its plain version bit for bit on
+                 laplacian_3d(48)'s operator at nrhs 1 and 64 (timed
+                 beside the float64 ELL matvec and its bound) and on a
+                 ragged operator, and the bfloat16 lanes of K1–K3 at
+                 phase 3's shapes, timed as phase 3 times kernels beside
+                 their plain versions and torch.baddbmm in bfloat16 (K1's
+                 update), index_add_ (K2) and two torch.bmm on widened
+                 panels (K3);
+ 14. the kernels line, the card line, and the contract line last.  Each
      real kernel's `launches` is the sum of its launches in phase 4's
      main path (`launches_main`), in phase 9's drive (a)
      (`launches_gate`), in phase 10's drives (a) and (b)
@@ -182,6 +210,8 @@ Phases, each of which raises (non-zero exit) on failure:
      (c)'s drives and later fused call); each complex lane's is its
      launches in phase 11's drives (a) and (b) and the first fused
      calls of (d), plus that lane's in phase 12 (`launches_arms`).
+     The bfloat16 lanes' rows count phase 13 (a)'s and (a2)'s launches,
+     K4's row those of (a2) and of (b)'s doubleword calls.
 Everything is made from fixed seeds.  Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -205,13 +235,22 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # lower bound)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12, "complex64": 67e12,
-              "complex128": 67e12}
+              "complex128": 67e12, "bfloat16": 989e12}
 # kernel vs plain version, max |diff| / max |plain|: rounding order
 # differs (substitution vs Newton inverses, atomics vs ordered adds);
 # a complex lane is held to its real precision's tolerance
 TOL = {"float32": 1e-4, "float64": 1e-10, "complex64": 1e-4,
        "complex128": 1e-10}
+# a bfloat16 lane of K1 or K2 is held element by element, in units of
+# each element's own bfloat16 spacing (bf16_ulp): the largest ratio of
+# |kernel - plain| to the element's limit (k1_bf16_limit,
+# ea_bf16_limit) must not pass 1
+BF16_EXCESS_MAX = 1.0
+EPS_F32 = 2.0 ** -23
 BERR_MAX = 64 * 2.220446049250313e-16
+# the doubleword fused solver's step limit on a bfloat16 factor of
+# laplacian_3d(48) (phase 13 (a2))
+A2_MAX_STEPS = 30
 
 
 def log(*a):
@@ -298,6 +337,60 @@ def rel_err(a, b) -> tuple:
     return d, d / s
 
 
+def bf16_ulp(x):
+    """Elementwise: the spacing of bfloat16 values (8 significant bits)
+    at |x|, 2^(e - 8) for |x| in [2^(e-1), 2^e); 0 where x is 0."""
+    import torch
+    m, e = torch.frexp(x.double().abs())
+    return torch.where(m == 0, torch.zeros_like(m),
+                       torch.exp2((e - 8).double()))
+
+
+def bf16_excess(got, want, limit) -> float:
+    """max over elements of |got - want| / limit (0 where they are
+    equal; a difference over a limit of 0 is infinite): ≤ 1 passes."""
+    import torch
+    d = (got.double() - want.double()).abs()
+    return float(torch.where(d == 0, torch.zeros_like(d), d / limit).max())
+
+
+def k1_bf16_limit(got, want, wb):
+    """Per element, how far K1's bfloat16 lane and its plain version may
+    differ.  Both factor in float32 (in different orders) and round
+    once: an element may land on the neighbouring bfloat16 value (2
+    spacings of the larger of the two), and the float32 orders differ by
+    a few float32 units of the magnitudes summed (64 units of the
+    front's largest |value| in the element's block: the L panel below
+    the diagonal block, rows ≥ wb of the first wb columns, or the
+    rest)."""
+    import torch
+    W = want.double().abs()
+    mb = W.shape[-1]
+    lmask = torch.zeros(mb, mb, dtype=torch.bool, device=W.device)
+    lmask[wb:, :wb] = True
+    s_l = W.masked_fill(~lmask, 0).amax(dim=(1, 2), keepdim=True)
+    s_r = W.masked_fill(lmask, 0).amax(dim=(1, 2), keepdim=True)
+    floor = 64 * EPS_F32 * torch.where(lmask, s_l, s_r)
+    return 2 * bf16_ulp(torch.maximum(got.double().abs(), W)) + floor
+
+
+def ea_bf16_limit(F0, upd, bucket):
+    """Per element, how far K2's bfloat16 lane and its plain version may
+    differ: (c + 1) bfloat16 spacings of S, where c is the number of
+    slab values added at the element and S is |F0| plus their |values|
+    (the kernel rounds once per record on wide buckets, the plain
+    version once; every partial sum is at most S)."""
+    import torch
+    from superlu_dist_tpu_torch.ops import ea_scatter
+    dst, src = ea_scatter.flat_indices(F0, bucket)
+    c = torch.zeros(F0.numel(), dtype=torch.float64, device=F0.device)
+    c.index_add_(0, dst, torch.ones(dst.numel(), dtype=torch.float64,
+                                    device=F0.device))
+    S = F0.double().abs().reshape(-1).index_add_(0, dst,
+                                                 upd[src].double().abs())
+    return ((c + 1) * bf16_ulp(S)).view(F0.shape)
+
+
 # --------------------------------------------------------------------
 # the main path
 # --------------------------------------------------------------------
@@ -352,6 +445,7 @@ def drive(label, options, a, lu=None, seed=0, nrhs=1,
                                      "ETREE", "SYMBFACT", "DIST")),
         "sched_s": u["SCHED"],
         "factor_s": u["FACT"] + u["FACT_ESC"],
+        "fact_s": u["FACT"], "fact_esc_s": u["FACT_ESC"],
         "solve_s": u["SOLVE"], "refine_s": u["REFINE"],
         "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
         "berr": float(stats.berr), "relerr": relerr,
@@ -1495,6 +1589,332 @@ K1_MERGED = ((6, 3072, 512), (96, 144, 32))
 
 
 # --------------------------------------------------------------------
+# the precision subsystem: bfloat16 factors and the escalation ladder,
+# double-word refinement on the card (kernel K4)
+# --------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _escalations():
+    """The escalation events the port's health seam receives during the
+    block, in order (from, to, trigger, berr)."""
+    from superlu_dist_tpu_torch.numerics import health
+    events, orig = [], health.record
+
+    def record(event, **kw):
+        if event == "escalation":
+            events.append({"from": kw["factor_dtype"],
+                           "to": kw["to_dtype"],
+                           "trigger": kw["trigger"], "berr": kw["berr"]})
+        orig(event, **kw)
+
+    health.record = record
+    try:
+        yield events
+    finally:
+        health.record = orig
+
+
+def _k4():
+    from superlu_dist_tpu_torch.ops import df64_spmv
+    return df64_spmv.df64_ell_spmv
+
+
+def bf16_phase(a48, plan48, lanes):
+    """Phase 13 (a): bfloat16 factors.  (a) gssvx(Options(factor_dtype=
+    "bfloat16")) on laplacian_3d(48) (float64 refinement on the host,
+    the sweeps in float64: K3's bf16_f64 lane), with SLU_PREC_LADDER set
+    to the default ladder for this drive only: the launches per lane
+    (K1 and K2 bf16, K3 bf16_f64 > 0), the escalation hops and their
+    triggers (the first bfloat16 -> float32), the FACT and FACT_ESC
+    walls, berr ≤ 64·eps(f64).  (a2) a bfloat16 factor of the same
+    system refined to the double-word class on the card:
+    make_fused_solver(plan48, "bfloat16", residual_mode="doubleword",
+    max_steps=A2_MAX_STEPS) at nrhs 1 and 64, two calls each (the
+    second captures nothing), the sweeps in float32 (K3's bf16_f32
+    lane: its own kernel at nrhs 1, the float32-panel lane on widened
+    panels at 64), K4 > 0, berr ≤ DF64_EPS and the error against
+    x_true."""
+    import numpy as np
+    import torch
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched
+    from superlu_dist_tpu_torch.precision.doubleword import DF64_EPS
+    with _env(SLU_PREC_LADDER="bfloat16,float32,float64"), \
+            _escalations() as hops:
+        _, rec = drive("bf16 factor + f64 refine laplacian_3d(48)",
+                       st.Options(factor_dtype="bfloat16"), a48)
+    rec["hops"] = hops
+    log("[precision a hops] " + json.dumps(hops))
+    if hops and (hops[0]["from"], hops[0]["to"]) != ("bfloat16",
+                                                     "float32"):
+        raise RuntimeError(f"first escalation hop {hops[0]}")
+    if len(hops) != rec["escalations"]:
+        raise RuntimeError(f"{len(hops)} hop events for "
+                           f"{rec['escalations']} escalations")
+    _count_lanes(lanes, rec["lanes"])
+    recs = {"a": rec}
+
+    step = batched.make_fused_solver(plan48, "bfloat16",
+                                     residual_mode="doubleword",
+                                     max_steps=A2_MAX_STEPS)
+    dev = step.context.device
+    vals = torch.from_numpy(a48.data).to(dev)
+    k4 = _k4()
+    label = "bf16 factor + df64 fused refine laplacian_3d(48)"
+    rec2 = {"label": label, "n": int(a48.n), "nrhs": {},
+            "launches": {}, "lanes": {}}
+    for R in (1, 64):
+        xt_np = np.random.default_rng(50 + R).standard_normal((a48.n, R))
+        b = torch.from_numpy(a48.to_scipy() @ xt_np).to(dev)
+        walls = []
+        for call in range(2):
+            _zero_launches()
+            k4.launches = 0
+            k4.lanes.clear()
+            g0 = step.context.graph_count()
+            w, out = _synced(lambda: step(vals, b))
+            walls.append({"wall_s": w,
+                          "captured": step.context.graph_count() - g0})
+            for k, v in {**_launches(), "df64_spmv": k4.launches}.items():
+                rec2["launches"][k] = rec2["launches"].get(k, 0) + v
+            _count_lanes(rec2["lanes"], {**_lanes(),
+                                         "df64_spmv": dict(k4.lanes)})
+        x, berr = out[0], float(out[1])
+        rr = {"walls": walls, "steps": int(out[2]), "berr": berr,
+              "relerr": float(np.abs(x.cpu().numpy() - xt_np).max()
+                              / np.abs(xt_np).max())}
+        rec2["nrhs"][R] = rr
+        log(f"[precision a2 nrhs {R}] " + json.dumps(rr))
+        if (not berr <= DF64_EPS or x.shape != (a48.n, R)
+                or not bool(torch.isfinite(x).all())):
+            raise RuntimeError(f"{label} nrhs {R}: berr {berr} > "
+                               f"{DF64_EPS} or a bad solution")
+        if walls[1]["captured"]:
+            raise RuntimeError(f"{label} nrhs {R}: the second call "
+                               "captured")
+        del b, out, x
+    del step, vals
+    log("[precision a2] " + json.dumps({k: rec2[k] for k in
+                                        ("launches", "lanes")}))
+    for rr, want in ((rec, {"panel_lu": "bf16", "ea_scatter": "bf16",
+                            "lsum": "bf16_f64"}),
+                     (rec2, {"panel_lu": "bf16", "ea_scatter": "bf16",
+                             "lsum": "bf16_f32", "df64_spmv": "df64"})):
+        got = {k: rr["lanes"][k].get(ln, 0) for k, ln in want.items()}
+        if min(got.values()) <= 0:
+            raise RuntimeError(f"{rr['label']}: a lane was never "
+                               f"launched: {got}")
+    _count_lanes(lanes, {k: v for k, v in rec2["lanes"].items()
+                         if k != "df64_spmv"})
+    recs["a2"] = rec2
+    return recs, rec2["launches"]["df64_spmv"]
+
+
+def df64_phase(label, a, plan, rounds=3):
+    """Phase 13 (b) on one matrix: make_fused_solver(plan, "float32",
+    residual_mode="doubleword") (the whole-phase arm, which the
+    doubleword residual forces) against the fp64-residual lane on the
+    same float32 factor, vals and b on the card, nrhs 1 and 64: first
+    (capturing) and later walls in turns, the graphs each call captured
+    (0 after the first), steps, berr (≤ DF64_EPS on the doubleword
+    lane, ≤ 64·eps(f64) on the fp64 lane) and the error against x_true
+    of both, the K1–K3 and K4 launches of each call (counts set to 0
+    just before it; K4 > 0 on the doubleword lane), resident and peak
+    bytes of the first call."""
+    import numpy as np
+    import torch
+    from superlu_dist_tpu_torch.ops import batched
+    from superlu_dist_tpu_torch.precision.doubleword import DF64_EPS
+    dw = batched.make_fused_solver(plan, "float32",
+                                   residual_mode="doubleword")
+    fp = batched.make_fused_solver(plan, "float32", residual_mode="fp64")
+    if (dw.residual_mode, dw.spmv_layout) != ("doubleword", "ell"):
+        raise RuntimeError(f"{label}: doubleword lane resolved to "
+                           f"{dw.residual_mode}/{dw.spmv_layout}")
+    dev = dw.context.device
+    vals = torch.from_numpy(a.data).to(dev)
+    k4 = _k4()
+    rec = {"label": label, "n": int(a.n),
+           "arm": {k: "staged" if s.context.staged else "whole phase"
+                   for k, s in (("df64", dw), ("fp64", fp))},
+           "k4_launches": 0, "k4_lanes": {}, "nrhs": {}}
+
+    def call(step, b):
+        g0 = step.context.graph_count()
+        _zero_launches()
+        k4.launches = 0
+        k4.lanes.clear()
+        wall, out = _synced(lambda: step(vals, b))
+        launches = {**_launches(), "df64_spmv": k4.launches}
+        lanes = {**_lanes(), "df64_spmv": dict(k4.lanes)}
+        return wall, out, step.context.graph_count() - g0, launches, lanes
+
+    def check(kind, out, launches, lanes, xtrue, what):
+        x, berr = out[0], float(out[1])
+        if (x.shape != xtrue.shape or x.dtype != torch.float64
+                or not bool(torch.isfinite(x).all())):
+            raise RuntimeError(f"{label} {kind} {what}: bad solution")
+        bound = DF64_EPS if kind == "df64" else BERR_MAX
+        if not berr <= bound:
+            raise RuntimeError(f"{label} {kind} {what}: berr {berr} > "
+                               f"{bound}")
+        need = ["panel_lu", "ea_scatter", "lsum"]
+        if kind == "df64":
+            need.append("df64_spmv")
+            rec["k4_launches"] += launches["df64_spmv"]
+            _count_lanes(rec["k4_lanes"], {"df64_spmv":
+                                           lanes["df64_spmv"]})
+        elif launches["df64_spmv"]:
+            raise RuntimeError(f"{label}: the fp64 lane launched K4")
+        for k in need:
+            if launches[k] <= 0:
+                raise RuntimeError(f"{label} {kind} {what}: kernel {k} "
+                                   "was never launched")
+        return float((x - xtrue).abs().max() / xtrue.abs().max())
+
+    for R in (1, 64):
+        rng = np.random.default_rng(40 + R)
+        xtrue_np = rng.standard_normal((a.n, R))
+        b = torch.from_numpy(a.to_scipy() @ xtrue_np).to(dev)
+        xtrue = torch.from_numpy(xtrue_np).to(dev)
+        r = {}
+        for kind, step in (("df64", dw), ("fp64", fp)):
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            first_s, out, cap, launches, lanes = call(step, b)
+            mem = {"peak_bytes": torch.cuda.max_memory_allocated() - m0,
+                   "resident_bytes": torch.cuda.memory_allocated() - m0}
+            r[kind] = {"first_s": first_s, "first_captured": cap,
+                       "first_launches": launches, "first_lanes": lanes,
+                       "memory": mem, "steps": int(out[2]),
+                       "berr": float(out[1]),
+                       "relerr": check(kind, out, launches, lanes, xtrue,
+                                       "first call"),
+                       "later": []}
+        for k in range(rounds):
+            for kind in (("df64", "fp64") if k % 2 == 0
+                         else ("fp64", "df64")):
+                step = dw if kind == "df64" else fp
+                w, out, cap, launches, lanes = call(step, b)
+                if cap:
+                    raise RuntimeError(f"{label} {kind}: a later call "
+                                       f"captured {cap} graphs")
+                r[kind]["later"].append({
+                    "wall_s": w, "steps": int(out[2]),
+                    "berr": float(out[1]), "launches": launches,
+                    "relerr": check(kind, out, launches, lanes, xtrue,
+                                    "later call")})
+        for kind in r:
+            r[kind]["later_s"] = statistics.median(
+                c["wall_s"] for c in r[kind]["later"])
+        rec["nrhs"][R] = r
+        log(f"[precision b {label} nrhs {R}] " + json.dumps(
+            {k: {f: v[f] for f in ("first_s", "first_captured", "later_s",
+                                   "steps", "berr", "relerr", "memory")}
+                 for k, v in r.items()}))
+    rec["graphs"] = dw.context.graph_count()
+    return rec
+
+
+def check_df64(a, label, timed=True):
+    """K4 against its plain version on the doubleword operator of `a`
+    at nrhs 1 and 64: bit for bit (hi and lo words), the joined product
+    against the float64 ELL product, and (with `timed`) both timed in
+    turns beside the float64 ELL matvec of the same operator
+    (DeviceSpMV.matvec) and the bound.  No single PyTorch call computes
+    a double-word product: library_ms is None."""
+    import numpy as np
+    import torch
+    from superlu_dist_tpu_torch.ops import df64_spmv
+    from superlu_dist_tpu_torch.ops.spmv import DeviceSpMV
+    from superlu_dist_tpu_torch.precision import doubleword as dw
+    dev = torch.device("cuda", torch.cuda.current_device())
+    m = DeviceSpMV.build(a, device=dev, doubleword=True)
+    m64 = DeviceSpMV.build(a, device=dev)
+    n, w = m.ell_cols.shape
+    rows = []
+    for R in (1, 64):
+        x = torch.from_numpy(np.random.default_rng(60 + R).standard_normal(
+            (n, R))).to(dev)
+        xh, xl = dw.split_f64_tensor(x)
+        args = (m.ell_cols, m.ell_vals, m.ell_vals_lo, xh, xl)
+        yk = df64_spmv.df64_ell_spmv(*args)
+        yp = dw.df64_ell_spmv(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(k.view(torch.int32), p.view(torch.int32))
+                   for k, p in zip(yk, yp))
+        if not same:
+            raise RuntimeError(f"K4 {label} nrhs {R}: not bitwise equal "
+                               "to its plain version")
+        _, rel64 = rel_err(dw.join_f64_tensor(*yk), m64.matvec(x))
+        r = {"shape": [n, w, R], "operator": label, "dtype": "float32 pairs",
+             "lane": "df64", "max_abs_err": 0.0, "bitwise": same,
+             "rel_err_vs_f64_ell": rel64, "library_ms": None}
+        if timed:
+            tm = time_turns({
+                "kernel": lambda: df64_spmv.df64_ell_spmv(*args),
+                "plain": lambda: dw.df64_ell_spmv(*args),
+                "f64_ell": lambda: m64.matvec(x)})
+            flops, nbytes = df64_spmv.bound_work(n, w, R,
+                                                 m.ell_cols.element_size())
+            b_ms, b_by = bound_ms(flops, nbytes, "float32")
+            r.update({"ms": tm["kernel"], "plain_ms": tm["plain"],
+                      "f64_ell_ms": tm["f64_ell"], "bound_ms": b_ms,
+                      "bound_by": b_by})
+        log("[precision kernel df64_spmv] " + json.dumps(r))
+        rows.append(r)
+    return rows
+
+
+def _ragged(k=12):
+    """laplacian_3d(k) with row 7 emptied (ragged ELL rows, pad slots in
+    every row): the card tests' operator."""
+    import scipy.sparse as sp
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
+    m = laplacian_3d(k).to_scipy().tolil()
+    m[7, :] = 0
+    m = sp.csr_matrix(m)
+    m.eliminate_zeros()
+    return st.csr_from_scipy(m)
+
+
+def precision_phase(a48):
+    """Phase 13: (a) bfloat16 gssvx and the ladder, (b) the doubleword
+    fused solver on laplacian_3d(48) and convection_diffusion_2d(200),
+    then K4 against its plain version (and on a ragged operator) and
+    the bfloat16 lanes of K1–K3 at phase 3's shapes."""
+    import gc
+    import torch
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.utils import testmat
+    recs, lanes = {}, {}
+    plan48 = st.plan_factorization(a48)
+    recs["bf16"], k4_bf16 = bf16_phase(a48, plan48, lanes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recs["df64"] = [df64_phase("laplacian_3d(48)", a48, plan48)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    acd = testmat.convection_diffusion_2d(200)
+    recs["df64"].append(df64_phase("convection_diffusion_2d(200)", acd,
+                                   st.plan_factorization(acd)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    k4 = {"df64": k4_bf16 + sum(r["k4_launches"] for r in recs["df64"])}
+    kres = kernel_checks(plan48, dtypes=("bfloat16",),
+                         pairs=(("bfloat16", "float32"),
+                                ("bfloat16", "float64")),
+                         sweep=False)
+    kres["df64_spmv"] = (check_df64(a48, "laplacian_3d(48)")
+                         + check_df64(_ragged(), "ragged laplacian_3d(12)",
+                                      timed=False))
+    recs["kernels"] = kres
+    return recs, kres, lanes, k4
+
+
+# --------------------------------------------------------------------
 # kernels against their plain versions
 # --------------------------------------------------------------------
 
@@ -1624,9 +2044,18 @@ def check_panel_lu(N, mb, wb, dtype, parent=None, decouple=False):
         raise RuntimeError(f"panel_lu counters differ: kernel "
                            f"({int(t1)}, {int(z1)}) plain "
                            f"({int(t2)}, {int(z2)})")
-    if not rel <= TOL[dtype]:
-        raise RuntimeError(f"panel_lu {dtype} ({N},{mb},{wb}) rel err "
-                           f"{rel:.3e} > {TOL[dtype]}")
+    if dtype == "bfloat16":
+        excess = bf16_excess(F1, F2, k1_bf16_limit(F1, F2, wb))
+        if not excess <= BF16_EXCESS_MAX:
+            raise RuntimeError(f"panel_lu bfloat16 ({N},{mb},{wb}): "
+                               f"|kernel - plain| reaches {excess:.3g} "
+                               "of its per-element limit")
+        tol = {"bf16_excess": excess, "max": BF16_EXCESS_MAX}
+    else:
+        tol = TOL[dtype]
+        if not rel <= tol:
+            raise RuntimeError(f"panel_lu {dtype} ({N},{mb},{wb}) rel "
+                               f"err {rel:.3e} > {tol}")
     del F2
     fns = {"kernel": lambda F: panel_lu.partial_lu_batch(F, thresh, wb=wb),
            "plain": lambda F: dense_lu.partial_lu_batch(F, thresh, wb=wb)}
@@ -1646,7 +2075,7 @@ def check_panel_lu(N, mb, wb, dtype, parent=None, decouple=False):
     b_ms, b_by = k1_bound(N, mb, wb, dtype)
     plan = panel_lu.launch_plan(N, mb, wb, tdt)
     return {"shape": [N, mb, wb], "dtype": dtype, "max_abs_err": abs_err,
-            "rel_err": rel, "tol": TOL[dtype], "ms": tm["kernel"],
+            "rel_err": rel, "tol": tol, "ms": tm["kernel"],
             "plain_ms": tm["plain"], "parent_ms": tm.get("parent"),
             "reset_ms": reset_ms, "library_ms": None,
             "update_library_ms": upd_ms, "bound_ms": b_ms,
@@ -1709,9 +2138,18 @@ def check_ea_scatter(sched, g, bucket, dtype):
     ea_scatter.ea_scatter_add_plain(F2, upd, bucket)
     torch.cuda.synchronize()
     abs_err, rel = rel_err(F1, F2)
-    if not rel <= TOL[dtype]:
-        raise RuntimeError(f"ea_scatter {dtype} rc_b={bucket.rc_b} rel "
-                           f"err {rel:.3e} > {TOL[dtype]}")
+    if dtype == "bfloat16":
+        excess = bf16_excess(F1, F2, ea_bf16_limit(F0, upd, bucket))
+        if not excess <= BF16_EXCESS_MAX:
+            raise RuntimeError(f"ea_scatter bfloat16 rc_b={bucket.rc_b}: "
+                               f"|kernel - plain| reaches {excess:.3g} "
+                               "of its per-element limit")
+        tol = {"bf16_excess": excess, "max": BF16_EXCESS_MAX}
+    else:
+        tol = TOL[dtype]
+        if not rel <= tol:
+            raise RuntimeError(f"ea_scatter {dtype} rc_b={bucket.rc_b} "
+                               f"rel err {rel:.3e} > {tol}")
     # the adds accumulate into F1 across the timed calls: the work per
     # call does not depend on the values
     dst, src = ea_scatter.flat_indices(F1, bucket)
@@ -1729,7 +2167,7 @@ def check_ea_scatter(sched, g, bucket, dtype):
                                   else 1.0), nbytes, dtype)
     return {"shape": [nrec, bucket.rc_b, g.mb], "dtype": dtype,
             "live_lanes": live, "max_abs_err": abs_err, "rel_err": rel,
-            "tol": TOL[dtype],
+            "tol": tol,
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
@@ -1775,6 +2213,11 @@ def check_lsum(ts, g, gs, R, pdtype, xdtype):
                                                   *args)}
     if pdtype == xdtype:
         fns["library"] = two_bmm
+    elif pdtype == "bfloat16":
+        # bfloat16 panels: the two torch.bmm on panels widened to the
+        # right-hand side's type once, outside the timing
+        Liw, L21w = Li.to(tx), L21c.to(tx)
+        fns["library"] = lambda: torch.bmm(L21w, torch.bmm(Liw, xb))
     tm = time_turns(fns)
     ms, plain_ms, lib_ms = tm["kernel"], tm["plain"], tm.get("library")
     flops, nbytes = lsum.bound_work(t, wb, rt, R, Li.element_size(),
@@ -1902,7 +2345,7 @@ def _lane(name, r):
     if name == "lsum":
         return r["lane"]
     return {"float32": "f32", "float64": "f64", "complex64": "c64",
-            "complex128": "c128"}[r["dtype"]]
+            "complex128": "c128", "bfloat16": "bf16"}[r["dtype"]]
 
 
 def _arms_count(arms, name, lane=None):
@@ -1962,6 +2405,55 @@ def kernels_line(res, launches, gate_launches, driver_launches, cres,
     return {"kernels": out}
 
 
+# phase 13's lanes of K1–K3 (bfloat16 factors)
+PRECISION_LANES = {"panel_lu": ("bf16",), "ea_scatter": ("bf16",),
+                   "lsum": ("bf16_f32", "bf16_f64")}
+
+
+def precision_rows(kres, lanes, k4):
+    """The kernels line's rows of phase 13: the bfloat16 lanes of K1–K3
+    (launches: phase 13 (a)'s and (a2)'s drives) and K4 (launches: (a2)
+    and (b)'s doubleword calls), each with its headline timing row (the
+    largest bound; one right-hand side for lsum)."""
+    out = []
+    for name, (src, repl) in KERNELS.items():
+        for lane in PRECISION_LANES[name]:
+            rows = [r for r in kres[name] if _lane(name, r) == lane]
+            head = max((r for r in rows
+                        if name != "lsum" or r["shape"][-1] == 1),
+                       key=lambda r: r["bound_ms"])
+            n = int(lanes.get(name, {}).get(lane, 0))
+            if n <= 0:
+                raise RuntimeError(f"{name} lane {lane} was never launched "
+                                   "on phase 13's drives")
+            out.append({
+                "name": f"{name}_{lane}", "route": "cuda", "source": src,
+                "replaces": repl, "launches": n,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"],
+                **({"update_library_ms": head["update_library_ms"]}
+                   if name == "panel_lu" else {}),
+                "shape": head["shape"], "dtype": head["dtype"]})
+    timed = [r for r in kres["df64_spmv"] if "ms" in r]
+    head = max(timed, key=lambda r: r["bound_ms"])
+    if k4["df64"] <= 0:
+        raise RuntimeError("K4 was never launched on phase 13's drives")
+    out.append({
+        "name": "df64_spmv", "route": "cuda",
+        "source": "superlu_dist_tpu_torch/csrc/df64_spmv.cu",
+        "replaces": "superlu_dist_tpu/precision/doubleword.py:228",
+        "replaces_note": "no TPU kernel: the reference's plain-jnp lane",
+        "launches": int(k4["df64"]),
+        "max_abs_err": max(r["max_abs_err"] for r in kres["df64_spmv"]),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "f64_ell_ms": head["f64_ell_ms"],
+        "shape": head["shape"], "dtype": head["dtype"]})
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2000,7 +2492,7 @@ def main(argv=None) -> int:
     with open(os.path.join(OUT_DIR, "build.log"), "w") as f:
         for name, text in b["log"].items():
             f.write(f"== {name}\n{text}\n")
-    log(f"build: K1-K3 built in {b['seconds']:.1f} s "
+    log(f"build: K1-K4 built in {b['seconds']:.1f} s "
         "(ptxas report in chiprun_out/build.log)")
 
     # kernels vs plain versions, at shapes from the k=48 schedule
@@ -2087,14 +2579,26 @@ def main(argv=None) -> int:
     log(f"[arms] phase wall {report['arms_wall_s']:.1f} s, launches per "
         "lane " + json.dumps(arms_lanes))
 
+    # the precision subsystem: bfloat16 factors and the ladder, the
+    # doubleword fused solver (K4), the bfloat16 lanes
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_prec = time.perf_counter()
+    report["precision"], pres, plane, k4 = precision_phase(a48)
+    report["precision_wall_s"] = time.perf_counter() - t_prec
+    log(f"[precision] phase wall {report['precision_wall_s']:.1f} s, "
+        "bfloat16 launches per lane " + json.dumps(plane)
+        + f", K4 launches {k4['df64']}")
+
     report["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
 
-    # 13. the summary lines, the contract line last
-    log(json.dumps(kernels_line(res, rec["launches"], gate_launches,
-                                driver_launches, cres, clanes,
-                                arms_lanes)))
+    # 14. the summary lines, the contract line last
+    line = kernels_line(res, rec["launches"], gate_launches,
+                        driver_launches, cres, clanes, arms_lanes)
+    line["kernels"] += precision_rows(pres, plane, k4)
+    log(json.dumps(line))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

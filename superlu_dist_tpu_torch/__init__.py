@@ -4,8 +4,9 @@ A port of `superlu_dist_tpu` (the JAX package beside it, which stays
 the reference) to PyTorch on an NVIDIA Hopper card: sparse LU with
 static pivoting (GESP), a supernodal multifrontal factorization
 executed level by level in padded bucket batches, a packed merged
-triangular solve, and host iterative refinement with a float32-factor
-/ float64-residual mode.  The three kernels the reference wrote in
+triangular solve, and iterative refinement with mixed precision
+(bfloat16 or float32 factors refined to float64 on the host, or on the
+card through double-word fp32 residuals, precision/).  The three kernels the reference wrote in
 Pallas — the front partial LU, the extend-add scatter and the fused
 forward lsum — are CUDA C++ kernels here (ops/panel_lu.py,
 ops/ea_scatter.py, ops/lsum.py, sources under csrc/), each beside its
@@ -57,6 +58,7 @@ from .models.gssvx import (  # noqa: E402
     warm_solve,
 )
 from .utils.io import read_matrix  # noqa: E402
+from .precision import PrecisionPolicy, ResidualMode  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -74,6 +76,8 @@ __all__ = [
     "csr_from_scipy",
     "FactorPlan",
     "LUFactorization",
+    "PrecisionPolicy",
+    "ResidualMode",
     "factorize",
     "get_diag_u",
     "gssvx",

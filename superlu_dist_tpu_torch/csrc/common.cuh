@@ -1,11 +1,13 @@
 // Shared helpers of the port's CUDA kernels (cp.async copies and the
 // FP64 tensor-core product are used by K1 and K3; the complex type by
-// the complex lanes of all three).  Each kernel source is
+// the complex lanes of all three; the bfloat16 conversions by the
+// bfloat16 lanes of all three).  Each kernel source is
 // built into its own shared library with a plain C interface (see
 // superlu_dist_tpu_torch/ops/_cuda.py); every library exports
 // slu_cuda_errstr so its Python wrapper can name a failed launch.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -188,6 +190,40 @@ struct IsComplex<cplx<R>> {
 // re^2 + im^2)
 __device__ __forceinline__ float tabs(c64 x) { return hypotf(x.re, x.im); }
 __device__ __forceinline__ double tabs(c128 x) { return hypot(x.re, x.im); }
+
+// ------------------------------------------------------------ bfloat16
+
+// bfloat16 is a storage type only: its lanes widen each value to float
+// as it is read, compute in float, and round once where they store.
+// acc_t<T> is the type a lane computes in; widen / narrow<T> convert
+// between the two (identities for every other type).
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+struct AccOf {
+  using type = T;
+};
+template <>
+struct AccOf<bf16> {
+  using type = float;
+};
+template <typename T>
+using acc_t = typename AccOf<T>::type;
+
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T widen(T x) {
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ T narrow(acc_t<T> x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // warp shuffles of any scalar type (a complex one moves as two reals)
 template <typename T>

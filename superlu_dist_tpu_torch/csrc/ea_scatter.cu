@@ -23,7 +23,10 @@
 // so what counts is the number of dependent trips to memory.
 //
 // Complex lanes (complex64 / complex128): the same kernels on the complex
-// type of common.cuh, a complex add at each destination.
+// type of common.cuh, a complex add at each destination.  The bfloat16
+// lane (the factor sweep of a bfloat16 factorization) widens every value
+// to float as it is read and rounds once at each store: a narrow
+// destination's whole sum rounds once, a wide one once per record.
 //
 // Design.  No atomics, a deterministic result: every destination's
 // values are added in record order.
@@ -74,12 +77,14 @@ ea_narrow(T* __restrict__ F, const T* __restrict__ upd,
   if (h >= nheads) return;
   const int64_t d = head_dst[h], s0 = head_src[h], s1 = head_src2[h];
   const int64_t x0 = xptr[h], x1 = xptr[h + 1];
-  const T f = F[d], v0 = upd[s0];
-  const T v1 = (s1 >= 0) ? upd[s1] : T(0);
-  T v = f + v0;
+  // sums in acc_t<T> (float for bfloat16), one rounding at the store
+  using A = acc_t<T>;
+  const A f = widen(F[d]), v0 = widen(upd[s0]);
+  const A v1 = (s1 >= 0) ? widen(upd[s1]) : A(0);
+  A v = f + v0;
   if (s1 >= 0) v += v1;
-  for (int64_t x = x0; x < x1; ++x) v += upd[xsrc[x]];
-  F[d] = v;
+  for (int64_t x = x0; x < x1; ++x) v += widen(upd[xsrc[x]]);
+  F[d] = narrow<T>(v);
 }
 
 template <typename T>
@@ -133,7 +138,7 @@ ea_wide(T* __restrict__ F, const T* __restrict__ upd,
         }
 #pragma unroll
         for (int u = 0; u < UNR; ++u)
-          if (pj[u] < mb) dst[pj[u]] = d[u] + s[u];
+          if (pj[u] < mb) dst[pj[u]] = narrow<T>(widen(d[u]) + widen(s[u]));
       }
     }
     __syncthreads();  // children in record order; pos is reused
@@ -189,6 +194,7 @@ int run(void* F, void* upd, void* so, void* st, void* pr, void* fronts,
                   stream);                                                \
   }
 
+SLU_EA_EXPORT(slu_ea_scatter_bf16, bf16)
 SLU_EA_EXPORT(slu_ea_scatter_f32, float)
 SLU_EA_EXPORT(slu_ea_scatter_f64, double)
 SLU_EA_EXPORT(slu_ea_scatter_c64, c64)

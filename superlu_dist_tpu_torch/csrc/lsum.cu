@@ -52,6 +52,10 @@
 //   columns with 16-byte stores).
 // TF32 is never used: float32 stays float32 (the refinement contract).
 //
+// bfloat16 panels (bf16_f32, bf16_f64: a bfloat16 factorization solves
+// with float32 or float64 right-hand sides): a simple kernel of their
+// own, `bf16_rows` below, up to 4 right-hand sides; above, the float32
+// panel lanes on a widened copy.
 // Complex lanes (the complex type of common.cuh): complex64 panels with
 // complex64 right-hand sides, complex128 with complex128, and complex64
 // panels with complex128 right-hand sides (the mixed mode, each panel
@@ -759,7 +763,167 @@ int run(void* Li, int64_t li_sf, int64_t li_sr, void* L21, int64_t l21_sf,
   return 0;
 }
 
+// ------------------------------------------------------ bfloat16 panels
+
+// bfloat16 panels (a bfloat16 factorization) with float32 or float64
+// right-hand sides:
+//   * up to 4 right-hand sides, `bf16_rows`: two launches, y = Li*x
+//     into Y, then upd = L21*y with y read back from Y; one warp per
+//     output row, its lanes over the depth (coalesced panel reads, each
+//     value widened as it is read), the lanes' partial sums reduced by
+//     shuffles in a fixed order;
+//   * more: the panels widened once into a float32 workspace (exact),
+//     then the float32-panel lanes above (f32_f32, f32_f64), whose
+//     tiles reuse each panel value across the right-hand sides.
+// Deterministic; no cp.async on bfloat16 (it has no 2-byte copies).
+constexpr int BF_NT = 256;     // 8 warps
+constexpr int BF_ROWS = BF_NT / 32;
+constexpr int64_t BF_WIDEN_CTAS = 132 * 8;   // grid-stride widening
+
+// C[n][r, c0 + j] = A[n][r, :] . B[n][:, c0 + j] for j < CB: A (M x K,
+// row stride a_sr, front stride a_sf; bfloat16), B (K x R row-major,
+// front stride b_sf), C (M x R row-major, front stride c_sf).  Grid:
+// x = row block, y = front (from f0), z = column tile.
+template <typename TX, int CB>
+__global__ void __launch_bounds__(BF_NT)
+bf16_rows(const bf16* __restrict__ A, int64_t a_sf, int64_t a_sr,
+          const TX* __restrict__ B, int64_t b_sf, TX* __restrict__ C,
+          int64_t c_sf, int M, int K, int R, int64_t f0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = blockIdx.x * BF_ROWS + warp;
+  if (r >= M) return;                    // whole warps leave together
+  const int64_t n = f0 + blockIdx.y;
+  const int c0 = blockIdx.z * CB;
+  const int nc = (R - c0 < CB) ? R - c0 : CB;
+  const bf16* a = A + n * a_sf + static_cast<int64_t>(r) * a_sr;
+  const TX* b = B + n * b_sf + c0;
+  TX acc[CB];
+#pragma unroll
+  for (int j = 0; j < CB; ++j) acc[j] = TX(0);
+  for (int k = lane; k < K; k += 32) {
+    const TX av = static_cast<TX>(widen(a[k]));
+    const TX* bk = b + static_cast<int64_t>(k) * R;
+#pragma unroll
+    for (int j = 0; j < CB; ++j)
+      if (j < nc) acc[j] += av * bk[j];
+  }
+#pragma unroll
+  for (int j = 0; j < CB; ++j)
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) acc[j] += shfl_xor(acc[j], off);
+  if (lane == 0) {
+    TX* cr = C + n * c_sf + static_cast<int64_t>(r) * R + c0;
+#pragma unroll
+    for (int j = 0; j < CB; ++j)
+      if (j < nc) cr[j] = acc[j];
+  }
+}
+
+// CB: right-hand sides per warp of bf16_rows (1 or 4)
+template <typename TX, int CB>
+int bf16_product(const bf16* A, int64_t a_sf, int64_t a_sr, const TX* B,
+                 int64_t b_sf, TX* C, int64_t c_sf, int64_t t, int64_t M,
+                 int64_t K, int64_t R, cudaStream_t s) {
+  if (M <= 0) return 0;
+  const int64_t rows = ceil_div(M, BF_ROWS), tiles = ceil_div(R, CB);
+  if (rows > INT32_MAX || tiles > 65535 || M > INT32_MAX ||
+      K > INT32_MAX || R > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int64_t f0 = 0; f0 < t; f0 += 65535) {
+    const int64_t nf = (t - f0 < 65535) ? t - f0 : 65535;
+    const dim3 grid((unsigned)rows, (unsigned)nf, (unsigned)tiles);
+    bf16_rows<TX, CB><<<grid, BF_NT, 0, s>>>(A, a_sf, a_sr, B, b_sf, C,
+                                             c_sf, (int)M, (int)K, (int)R,
+                                             f0);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+template <typename TX, int CB>
+int lsum_bf16_pair(const bf16* li, int64_t li_sf, int64_t li_sr,
+                   const bf16* l21, int64_t l21_sf, int64_t l21_sr,
+                   const TX* x, TX* y, TX* u, int64_t t, int64_t wb,
+                   int64_t rtrim, int64_t R, cudaStream_t s) {
+  int rc = bf16_product<TX, CB>(li, li_sf, li_sr, x, wb * R, y, wb * R, t,
+                                wb, wb, R, s);
+  if (rc != 0 || rtrim <= 0) return rc;
+  return bf16_product<TX, CB>(l21, l21_sf, l21_sr, y, wb * R, u, rtrim * R,
+                              t, rtrim, wb, R, s);
+}
+
+// dst (t, M, K) contiguous float32 <- src (t, M, K) bfloat16 with front
+// stride sf and row stride sr
+__global__ void __launch_bounds__(BF_NT)
+widen_panels(const bf16* __restrict__ src, int64_t sf, int64_t sr,
+             float* __restrict__ dst, int64_t t, int64_t M, int64_t K) {
+  const int64_t total = t * M * K;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(BF_NT) + threadIdx.x;
+       i < total; i += static_cast<int64_t>(gridDim.x) * BF_NT) {
+    const int64_t n = i / (M * K), rk = i - n * M * K;
+    const int64_t r = rk / K, k = rk - r * K;
+    dst[i] = widen(src[n * sf + r * sr + k]);
+  }
+}
+
+int widen_to_f32(const bf16* src, int64_t sf, int64_t sr, float* dst,
+                 int64_t t, int64_t M, int64_t K, cudaStream_t s) {
+  const int64_t total = t * M * K;
+  if (total <= 0) return 0;
+  const int64_t ctas = ceil_div(total, BF_NT);
+  widen_panels<<<(unsigned)(ctas < BF_WIDEN_CTAS ? ctas : BF_WIDEN_CTAS),
+                 BF_NT, 0, s>>>(src, sf, sr, dst, t, M, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `work`: float32, t * (wb + rtrim) * wb elements, used above 4
+// right-hand sides (may be null at or below; ops/lsum.BF16_ROWS_MAX)
+template <typename TX>
+int run_bf16(void* Li, int64_t li_sf, int64_t li_sr, void* L21,
+             int64_t l21_sf, int64_t l21_sr, void* xb, void* Y, void* UPD,
+             void* work, int64_t t, int64_t wb, int64_t rtrim, int64_t R,
+             int64_t y_off, int64_t u_off, void* stream) {
+  if (t <= 0 || R <= 0 || wb <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* li = static_cast<const bf16*>(Li);
+  const bf16* l21 = static_cast<const bf16*>(L21);
+  if (R > 4) {
+    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    float* wli = static_cast<float*>(work);
+    float* wl21 = wli + t * wb * wb;
+    int rc = widen_to_f32(li, li_sf, li_sr, wli, t, wb, wb, s);
+    if (rc == 0 && rtrim > 0)
+      rc = widen_to_f32(l21, l21_sf, l21_sr, wl21, t, rtrim, wb, s);
+    if (rc != 0) return rc;
+    return run<float, TX>(wli, wb * wb, wb, wl21, rtrim * wb, wb, xb, Y,
+                          UPD, t, wb, rtrim, R, y_off, u_off, stream);
+  }
+  const TX* x = static_cast<const TX*>(xb);
+  TX* y = static_cast<TX*>(Y) + y_off * R;
+  TX* u = static_cast<TX*>(UPD) + u_off * R;
+  if (R == 1)
+    return lsum_bf16_pair<TX, 1>(li, li_sf, li_sr, l21, l21_sf, l21_sr, x,
+                                 y, u, t, wb, rtrim, R, s);
+  return lsum_bf16_pair<TX, 4>(li, li_sf, li_sr, l21, l21_sf, l21_sr, x, y,
+                               u, t, wb, rtrim, R, s);
+}
+
 }  // namespace
+
+#define SLU_LSUM_EXPORT_BF16(NAME, TX)                                     \
+  extern "C" int NAME(void* Li, int64_t li_sf, int64_t li_sr, void* L21, \
+                      int64_t l21_sf, int64_t l21_sr, void* xb, void* Y,  \
+                      void* UPD, void* work, int64_t t, int64_t wb,       \
+                      int64_t rtrim, int64_t R, int64_t y_off,            \
+                      int64_t u_off, void* stream) {                      \
+    return run_bf16<TX>(Li, li_sf, li_sr, L21, l21_sf, l21_sr, xb, Y,    \
+                        UPD, work, t, wb, rtrim, R, y_off, u_off,         \
+                        stream);                                          \
+  }
+
+SLU_LSUM_EXPORT_BF16(slu_lsum_bf16_f32, float)
+SLU_LSUM_EXPORT_BF16(slu_lsum_bf16_f64, double)
 
 #define SLU_LSUM_EXPORT(NAME, TP, TX)                                      \
   extern "C" int NAME(void* Li, int64_t li_sf, int64_t li_sr, void* L21, \

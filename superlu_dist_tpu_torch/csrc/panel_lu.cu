@@ -62,6 +62,11 @@
 // FP64 mma takes no complex operands); schur_update uses 64 x 64 output
 // tiles at depth 16 there, so that its ring fits shared memory and a
 // thread's complex sums stay in registers.
+// bfloat16 lane (a bfloat16 factorization): bfloat16 storage, float32
+// arithmetic.  The fronts are widened into a float32 copy, the float32
+// lane factors it (its regime and workspace), and each element is
+// rounded once back into F: the class the TPU kernel computed in (f32
+// accumulation on the MXU), at three extra passes over the fronts.
 // Edge tiles are predicated; the batch is chunked at the 65535 limit of
 // gridDim.y / gridDim.z.
 #include <type_traits>
@@ -1258,7 +1263,60 @@ int run(void* Fv, void* workv, int64_t N, int64_t mb, int64_t wb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bfloat16 lane: the fronts widened into a float32 copy at the head
+// of `work`, the float32 lane run on that copy (the rest of `work` its
+// workspace), and every element rounded once back into F.
+constexpr int64_t CONVERT_CTAS = 132 * 8;   // grid-stride conversions
+
+__global__ void __launch_bounds__(NT)
+widen_fronts(const bf16* __restrict__ src, float* __restrict__ dst,
+             int64_t n) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * NT)
+    dst[i] = __bfloat162float(src[i]);
+}
+
+__global__ void __launch_bounds__(NT)
+narrow_fronts(const float* __restrict__ src, bf16* __restrict__ dst,
+              int64_t n) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * NT)
+    dst[i] = __float2bfloat16_rn(src[i]);
+}
+
+int run_bf16(void* Fv, void* workv, int64_t N, int64_t mb, int64_t wb,
+             int64_t regime, const void* thresh, void* tiny, void* nzero,
+             void* stream) {
+  if (N <= 0) return 0;
+  if (workv == nullptr || mb > (1 << 20))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n = N * mb * mb;
+  bf16* F = static_cast<bf16*>(Fv);
+  float* Fw = static_cast<float*>(workv);
+  const int64_t b = ceil_div(n, NT);
+  const unsigned blocks =
+      static_cast<unsigned>(b < CONVERT_CTAS ? b : CONVERT_CTAS);
+  widen_fronts<<<blocks, NT, 0, s>>>(F, Fw, n);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rc = run<float>(Fw, regime == 1 ? Fw + n : nullptr, N, mb, wb,
+                            regime, thresh, tiny, nzero, stream);
+  if (rc != 0) return rc;
+  narrow_fronts<<<blocks, NT, 0, s>>>(Fw, F, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// work: N * mb * mb float32 (the working fronts), then the float32
+// lane's workspace
+extern "C" int slu_panel_lu_bf16(void* F, void* work, int64_t N,
+                                 int64_t mb, int64_t wb, int64_t regime,
+                                 const void* thresh, void* tiny,
+                                 void* nzero, void* stream) {
+  return run_bf16(F, work, N, mb, wb, regime, thresh, tiny, nzero, stream);
+}
 
 extern "C" int slu_panel_lu_f32(void* F, void* work, int64_t N,
                                 int64_t mb, int64_t wb, int64_t regime,

@@ -4,10 +4,18 @@ The port's numeric phases run on the CUDA card.  A caller that wants
 the CPU (the tests, which run the kernels' plain versions there) says
 so with `device="cpu"`; with no card and no such request the entry
 points raise instead of quietly running on the host.
+
+`dtype_info` is the one place that answers dtype questions (torch
+dtype, bytes, realness, eps) for every spelling of a dtype, bfloat16
+included, without numpy's help.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 
@@ -39,13 +47,98 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# the element types the port knows, by name.  bfloat16 has no numpy
+# dtype unless the ml_dtypes package is loaded, which the port never
+# requires, so every dtype question goes through `dtype_info` and never
+# through np.dtype / np.finfo on a name
+_TORCH = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "float32": torch.float32, "float64": torch.float64,
+          "complex64": torch.complex64, "complex128": torch.complex128}
+_NAME = {v: k for k, v in _TORCH.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class DTypeInfo:
+    """One element type: its name, torch dtype, bytes per element,
+    realness and unit roundoff (eps of its real precision)."""
+    name: str
+    torch: torch.dtype
+    itemsize: int
+    is_complex: bool
+    eps: float
+
+    @property
+    def numpy(self) -> np.dtype:
+        """The numpy dtype; bfloat16 has none (without ml_dtypes)."""
+        if self.name == "bfloat16":
+            raise TypeError("bfloat16 has no numpy dtype here (numpy "
+                            "needs the ml_dtypes package for it, which "
+                            "the port does not use): bfloat16 values "
+                            "live in torch tensors only")
+        return np.dtype(self.name)
+
+    @property
+    def working(self) -> "DTypeInfo":
+        """The type arithmetic on this type's values runs in, and the
+        one that holds them exactly on the host: itself, float32 for
+        bfloat16 (a storage type only)."""
+        return dtype_info("float32") if self.name == "bfloat16" else self
+
+    @property
+    def handle(self):
+        """What a factor handle records as its dtype: the numpy dtype,
+        or torch.bfloat16 where numpy has none."""
+        return self.torch if self.name == "bfloat16" else self.numpy
+
+    @property
+    def real(self) -> "DTypeInfo":
+        return dtype_info(self.torch.to_real())
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, DTypeInfo):
+        return dtype.name
+    if isinstance(dtype, torch.dtype):
+        name = _NAME.get(dtype)
+    elif isinstance(dtype, str) and dtype in _TORCH:
+        name = dtype
+    else:
+        # numpy dtypes, scalar types and other spellings ("f8", float);
+        # an ml_dtypes bfloat16 dtype names itself "bfloat16"
+        name = np.dtype(dtype).name
+    if name not in _TORCH:
+        raise TypeError(f"unsupported dtype {dtype!r}; expected one of "
+                        f"{tuple(_TORCH)}")
+    return name
+
+
+@functools.lru_cache(maxsize=None)
+def _info(name: str) -> DTypeInfo:
+    t = _TORCH[name]
+    return DTypeInfo(name=name, torch=t, itemsize=t.itemsize,
+                     is_complex=t.is_complex,
+                     eps=float(torch.finfo(t).eps))
+
+
+def dtype_info(dtype) -> DTypeInfo:
+    """Any spelling of a dtype (a name, a numpy dtype or scalar type, a
+    torch dtype, a DTypeInfo) -> its DTypeInfo.  Raises TypeError on a
+    type the port does not know."""
+    return _info(_dtype_name(dtype))
+
+
 def torch_dtype(dtype) -> torch.dtype:
-    """numpy dtype (or name) -> torch dtype."""
-    import numpy as np
-    return {np.dtype(np.float64): torch.float64,
-            np.dtype(np.float32): torch.float32,
-            np.dtype(np.complex128): torch.complex128,
-            np.dtype(np.complex64): torch.complex64}[np.dtype(dtype)]
+    """Any spelling of a dtype -> torch dtype."""
+    return dtype_info(dtype).torch
+
+
+def solve_dtype(factor, rhs) -> torch.dtype:
+    """The dtype a sweep runs in: the factor dtype promoted against the
+    right-hand side's, and at least float32 (a bfloat16 factor's
+    panels are widened as the sweep reads them; K3 has no bfloat16
+    right-hand-side lane)."""
+    return dtype_info(torch.promote_types(torch_dtype(factor),
+                                          torch_dtype(rhs))).working.torch
 
 
 def upload_int64(arrays, device) -> list:
@@ -53,7 +146,6 @@ def upload_int64(arrays, device) -> list:
     returned as views of one buffer.  A host→device copy from pageable
     memory synchronises the stream, so a schedule's thousands of small
     index arrays must not go over one by one."""
-    import numpy as np
     flat = (np.concatenate([np.asarray(a, dtype=np.int64).ravel()
                             for a in arrays])
             if arrays else np.zeros(0, dtype=np.int64))

@@ -35,8 +35,8 @@ import sys
 import numpy as np
 
 from .. import Options, gssvx
-from ..device import NoCudaDeviceError, resolve_device
-from ..models.gssvx import (_should_escalate_fused,
+from ..device import NoCudaDeviceError, dtype_info, resolve_device
+from ..models.gssvx import (_HOST_BF16, _should_escalate_fused,
                             effective_factor_dtype, plan_factorization)
 from ..numerics import health
 from ..ops.batched import _pair_mode, make_fused_solver
@@ -64,8 +64,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="grid depth (multi-GPU, not ported)")
     p.add_argument("-s", "--nrhs", type=int, default=1)
     p.add_argument("--dtype", default=None,
-                   help="factor dtype (default float64; use float32 "
-                        "for the mixed-precision strategy)")
+                   help="factor dtype (default float64; float32 or "
+                        "bfloat16 for the mixed-precision strategy, "
+                        "which climbs the escalation ladder when the "
+                        "refinement contract fails)")
     p.add_argument("--backend", default="auto",
                    choices=["auto", "torch", "host"],
                    help="auto = torch (the device path); host = the "
@@ -128,7 +130,12 @@ def main(argv=None) -> int:
 
     complex_sys = np.issubdtype(a.dtype, np.complexfloating)
     fdt = args.dtype or ("complex128" if complex_sys else "float64")
-    eff = effective_factor_dtype(a.dtype, fdt).name
+    try:
+        eff = effective_factor_dtype(a.dtype, fdt).name
+    except TypeError as e:
+        return _refuse(str(e))
+    if args.backend == "host" and eff == "bfloat16":
+        return _refuse(_HOST_BF16)
     if eff != fdt:
         if not args.quiet:
             print(f"complex matrix: factor dtype mapped to {eff}")
@@ -233,7 +240,7 @@ def _solve_fused(a, b, opts, stats, dev):
                       refine_dtype=opts.refine_dtype, to_dtype=nxt,
                       trigger=classify_trigger(
                           stats.berr, stalled=stalled,
-                          factor_eps=float(np.finfo(np.dtype(cur)).eps)))
+                          factor_eps=dtype_info(cur).eps))
         x = run(nxt, "FACT_ESC")
         cur = nxt
     return x.cpu().numpy()

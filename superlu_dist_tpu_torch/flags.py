@@ -38,6 +38,10 @@ FLAGS: dict[str, str] = {
     # --- residual SpMV layout (ops/spmv.py) ---
     "SLU_SPMV_LAYOUT": "auto|ell|coo residual SpMV layout (ell = scatter-free padded rows)",
     "SLU_SPMV_ELL_WASTE": "max ELL padding ratio over true nnz before falling back to COO (default 4)",
+    # --- mixed precision (precision/, options.py; the reference's
+    # names and defaults) ---
+    "SLU_PREC_RESIDUAL": "auto|plain|doubleword|fp64 default Options.residual_mode: how the refinement residual accumulates (doubleword = two-float fp32 df64 pairs on the fused device loop, kernel K4; the host loop uses native f64 either way)",
+    "SLU_PREC_LADDER": "comma dtype list overriding the escalation ladder (default bfloat16,float32,float64; sorted by eps, climbed one rung per failed refinement contract; each rung re-pays one factorization)",
     # --- numerical trust layer (numerics/, models/gssvx.py; the
     # reference's names and defaults) ---
     "SLU_COND_ESTIMATE": "1 = Hager-Higham rcond estimate after every gssvx factorization (numerics/gscon.py): at most 2*SLU_COND_MAXITER+2 refinement-free solves on the resident factors, no extra factorization; off (default) = rcond stays lazy (ensure_rcond) and the condition policy never engages",

@@ -52,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import DTypeInfo, dtype_info, resolve_device, solve_dtype
 from ..numerics import health
 from ..numerics.errors import InvalidInputError
 from ..numerics.gscon import ensure_rcond
@@ -70,6 +70,9 @@ _DIST_TODO = ("the dist backend and grid= (mesh execution over several "
               "devices) are not ported yet (ROADMAP queue 1 item 15, "
               "multi-GPU)")
 _BACKENDS = ("auto", "torch", "host")
+_HOST_BF16 = ("the host backend factors in numpy, which has no bfloat16 "
+              "without the ml_dtypes package (not a dependency of the "
+              "port): factor bfloat16 on the torch backend")
 
 
 @dataclasses.dataclass
@@ -112,15 +115,14 @@ class LUFactorization:
         return self.options or self.plan.options
 
 
-def effective_factor_dtype(a_dtype, factor_dtype) -> np.dtype:
+def effective_factor_dtype(a_dtype, factor_dtype) -> DTypeInfo:
     """The dtype the factors are computed in: a complex system forces a
-    complex factor dtype of matching precision (float32 -> complex64,
-    float64 -> complex128), as the reference maps it; a real system
-    keeps `factor_dtype`."""
-    fdt = np.dtype(factor_dtype)
-    if np.issubdtype(np.dtype(a_dtype), np.complexfloating) \
-            and fdt.kind != "c":
-        fdt = np.promote_types(fdt, np.complex64)
+    complex factor dtype of matching precision (bfloat16 and float32 ->
+    complex64, float64 -> complex128), as the reference's
+    np.promote_types maps it; a real system keeps `factor_dtype`."""
+    fdt = dtype_info(factor_dtype)
+    if dtype_info(a_dtype).is_complex and not fdt.is_complex:
+        fdt = dtype_info(torch.promote_types(fdt.torch, torch.complex64))
     return fdt
 
 
@@ -184,9 +186,11 @@ def factorize(a: CSRMatrix, options: Options | None = None,
         plan = _plan(a, options, stats, dev, user_perm_r, user_perm_c)
     scaled = plan.scaled_values(a)
     if backend == "host":
+        if fdt.name == "bfloat16":
+            raise ValueError(_HOST_BF16)
         with stats.timer(_phase):
             host_lu = ref_multifrontal.factorize_host(plan, scaled,
-                                                      dtype=fdt)
+                                                      dtype=fdt.numpy)
         tiny = host_lu.tiny_pivots
         lu = LUFactorization(plan=plan, backend="host", host_lu=host_lu,
                              a=a, stats=stats, options=options)
@@ -252,10 +256,10 @@ def solve(lu: LUFactorization, b: np.ndarray,
         # dtype promote the whole solve (an fp32 pipeline must not pay
         # fp64 sweeps because a client sent a float64 buffer); the
         # realness is the system's, the precision the option's
-        sdt = np.dtype(options.solve_dtype)
+        sdt = dtype_info(options.solve_dtype).working.torch
         if np.issubdtype(bb.dtype, np.complexfloating):
-            sdt = np.promote_types(sdt, np.complex64)
-        bb = bb.astype(sdt)
+            sdt = torch.promote_types(sdt, torch.complex64)
+        bb = bb.astype(dtype_info(sdt).numpy)
 
     if options.trans == Trans.CONJ:
         # (Aᴴ)⁻¹·b = conj((Aᵀ)⁻¹·conj(b)): the TRANS pipeline,
@@ -315,11 +319,12 @@ def solve_rhs_dtype(lu: LUFactorization) -> np.dtype:
     path's promotion against the factors: the solve graphs' operand
     dtype, which warm_solve must use to capture the graphs live
     traffic replays.  An explicit Options.solve_dtype replaces the
-    float64 the promotion otherwise assumes of the right-hand side."""
+    float64 the promotion otherwise assumes of the right-hand side.
+    A bfloat16 factor's sweeps run in at least float32."""
     opts = lu.effective_options
-    rhs = (np.dtype(opts.solve_dtype) if opts.solve_dtype is not None
-           else np.dtype(np.float64))
-    return np.promote_types(np.dtype(opts.factor_dtype), rhs)
+    rhs = (opts.solve_dtype if opts.solve_dtype is not None
+           else "float64")
+    return dtype_info(solve_dtype(opts.factor_dtype, rhs)).numpy
 
 
 def warm_solve(lu: LUFactorization, nrhs_widths=(1,),
@@ -341,8 +346,8 @@ def get_diag_u(lu: LUFactorization) -> np.ndarray:
     fp = plan.frontal
     xsup = fp.sym.part.xsup
     if lu.backend == "host":
-        out = np.empty(plan.n, dtype=np.dtype(
-            lu.effective_options.factor_dtype))
+        out = np.empty(plan.n, dtype=dtype_info(
+            lu.effective_options.factor_dtype).numpy)
         for s, hu in enumerate(lu.host_lu.U):
             w = int(fp.w[s])
             out[int(xsup[s]):int(xsup[s]) + w] = np.diagonal(hu[:w, :w])
@@ -359,8 +364,11 @@ def get_diag_u(lu: LUFactorization) -> np.ndarray:
                     else U[idx])
         dst += [int(xsup[s]) + np.arange(int(fp.w[s]))
                 for s in g.sup_ids]
-    out = np.empty(plan.n, dtype=np.dtype(d.dtype))
-    out[np.concatenate(dst)] = torch.cat(vals).cpu().numpy()
+    # a bfloat16 factor's pivots come back in float32 (exact)
+    info = dtype_info(d.dtype)
+    out = np.empty(plan.n, dtype=info.working.numpy)
+    out[np.concatenate(dst)] = torch.cat(vals).cpu().to(
+        info.working.torch).numpy()
     return out
 
 
@@ -382,7 +390,10 @@ def factor_arrays(lu: LUFactorization) -> list:
     never a solve); a host handle's panels are returned as they are."""
     if lu.backend == "host":
         return _host_panels(lu.host_lu)
-    return [a.cpu().numpy() for a in _factor_tensors(lu.device_lu)]
+    # bfloat16 panels come back as float32 (exact)
+    host = dtype_info(lu.device_lu.dtype).working.torch
+    return [a.cpu().to(host).numpy()
+            for a in _factor_tensors(lu.device_lu)]
 
 
 def factors_finite(lu: LUFactorization) -> bool:
@@ -400,7 +411,7 @@ def query_space(lu: LUFactorization) -> dict:
     """LU storage accounting (dQuerySpace_dist analog,
     SRC/superlu_ddefs.h:616): true nnz(L+U) and the bytes the factors
     hold (padded panels on the device, unpadded ones on the host)."""
-    itemsize = np.dtype(lu.effective_options.factor_dtype).itemsize
+    itemsize = dtype_info(lu.effective_options.factor_dtype).itemsize
     nnz = lu.plan.lu_nnz()
     d = lu.device_lu
     if lu.backend == "host":
@@ -586,8 +597,7 @@ def _escalation_trigger(options: Options, lu: LUFactorization,
     if not _should_escalate(options, lu, stats):
         return None
     from ..precision.policy import classify_trigger
-    f_eps = float(np.finfo(np.dtype(
-        lu.effective_options.factor_dtype)).eps)
+    f_eps = dtype_info(lu.effective_options.factor_dtype).eps
     return classify_trigger(stats.berr, stalled=stats.refine_stalled,
                             pivot_growth=health.pivot_growth(lu),
                             factor_eps=f_eps)
@@ -619,8 +629,8 @@ def _escalation_core(options: Options, factor_dtype: str,
         return False
     if options.iter_refine == IterRefine.NOREFINE:
         return False
-    f_eps = float(np.finfo(np.dtype(factor_dtype)).eps)
-    r_eps = float(np.finfo(np.dtype(options.refine_dtype)).eps)
+    f_eps = dtype_info(factor_dtype).eps
+    r_eps = dtype_info(options.refine_dtype).eps
     if f_eps <= r_eps:            # nothing higher to escalate to
         return False
     # a NaN/Inf berr (overflowed low-precision factor) must escalate

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..device import dtype_info
+
 
 def _refine_dtype(opts, sys_dtype):
     """The accumulator dtype per the resolved residual mode: PLAIN
@@ -26,11 +28,13 @@ def _refine_dtype(opts, sys_dtype):
     from ..precision.policy import ResidualMode, resolve_residual_mode
     mode = resolve_residual_mode(opts)
     if mode == ResidualMode.PLAIN.value:
-        base = np.dtype(opts.factor_dtype)
+        # the working precision is the sweep's: float32 for a bfloat16
+        # factor (numpy has no bfloat16)
+        base = dtype_info(opts.factor_dtype).working.numpy
     elif mode == ResidualMode.DOUBLEWORD.value:
         base = np.dtype(np.float64)
     else:
-        base = np.dtype(opts.refine_dtype)
+        base = dtype_info(opts.refine_dtype).working.numpy
     if np.issubdtype(np.dtype(sys_dtype), np.complexfloating):
         base = np.promote_types(base, np.complex64)
     return base
@@ -61,7 +65,7 @@ def iterative_refine(lu, b, x, solve_factored, to_factor_rhs,
     """Returns (x, berr, steps, stalled)."""
     opts = lu.effective_options
     rdt = _refine_dtype(opts, np.promote_types(lu.a.dtype, b.dtype))
-    eps = np.finfo(rdt).eps
+    eps = dtype_info(rdt).eps
     asp, abs_a = _operands(lu, rdt)
     if trans:
         asp = asp.T

@@ -27,8 +27,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .. import flags
+from ..device import dtype_info, torch_dtype
 from ..options import IterRefine, Trans
 from ..utils.stats import Stats
 from . import health
@@ -109,7 +111,7 @@ def estimate_rcond(lu, anorm: float | None = None,
     base = eff.replace(iter_refine=IterRefine.NOREFINE)
     # the gradient leg of a complex system solves with Aᴴ (dzlacon),
     # a real one with Aᵀ
-    cplx = np.dtype(eff.factor_dtype).kind == "c"
+    cplx = dtype_info(eff.factor_dtype).is_complex
     # the copies share the factors: device_lu with the handle's solve
     # graphs, or a host handle's host_lu
     lu_n = dataclasses.replace(lu, options=base.replace(
@@ -125,7 +127,9 @@ def estimate_rcond(lu, anorm: float | None = None,
         anorm = one_norm(lu.a) if lu.a is not None else None
     if not anorm:       # zero matrix (or no A retained): no estimate
         return 0.0
-    dt = np.promote_types(np.dtype(eff.factor_dtype), np.float64)
+    # the estimate's vectors: float64 of the factors' realness
+    dt = dtype_info(torch.promote_types(torch_dtype(eff.factor_dtype),
+                                        torch.float64)).numpy
     ainv = inv_norm_est(solve_fn, lu.n, dt, max_iter=max_iter)
     if not np.isfinite(ainv) or ainv <= 0.0:
         return 0.0

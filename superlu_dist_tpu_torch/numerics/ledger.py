@@ -20,6 +20,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from ..device import dtype_info
 
 # stamped payloads ride result stamps and health records; cap the
 # per-factorization location list so a pathological matrix (every
@@ -98,15 +101,15 @@ def build_ledger(lu) -> PerturbationLedger:
     from ..ops.batched import _thresh_for
     src = lu.host_lu if lu.backend == "host" else lu.device_lu
     count = int(src.tiny_pivots)
-    fdt = np.dtype(lu.effective_options.factor_dtype)
+    fdt = dtype_info(lu.effective_options.factor_dtype)
     thresh = float(_thresh_for(lu.plan, fdt))
     if count == 0 or thresh == 0.0:
         return PerturbationLedger(count=count, threshold=thresh)
     diag = get_diag_u(lu)
     # replaced pivots are EXACTLY ±thresh in the factor dtype; compare
     # against thresh rounded through that dtype with a few ulps of slack
-    tol = 16.0 * float(np.finfo(fdt).eps)
-    t_cast = float(np.abs(np.asarray(thresh, dtype=fdt)))
+    tol = 16.0 * fdt.eps
+    t_cast = abs(float(torch.tensor(thresh, dtype=fdt.torch).real))
     mag = np.abs(np.asarray(diag, dtype=np.float64))
     # diag is in factor column order; diag[final_col[j]] is original
     # column j's pivot — reindex so locations are caller-meaningful

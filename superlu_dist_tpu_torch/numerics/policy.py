@@ -25,6 +25,7 @@ import dataclasses
 import numpy as np
 
 from .. import flags
+from ..device import dtype_info
 from .errors import SingularMatrixError
 
 _MODES = ("serve", "stamp", "refuse")
@@ -52,12 +53,16 @@ class ConditionPolicy:
     def floor_for(self, refine_dtype) -> float:
         if self.floor > 0.0:
             return self.floor
-        return float(np.finfo(np.dtype(refine_dtype)).eps)
+        return dtype_info(refine_dtype).eps
 
     def stamp_for(self, refine_dtype) -> float:
         if self.stamp > 0.0:
             return self.stamp
-        return float(np.sqrt(np.finfo(np.dtype(refine_dtype)).eps))
+        # the square root in the dtype's own precision, as the
+        # reference takes it of np.finfo's eps
+        info = dtype_info(refine_dtype)
+        return float(np.sqrt(np.asarray(info.eps,
+                                        dtype=info.working.numpy)))
 
     def classify(self, rcond, refine_dtype) -> str:
         """'ok' | 'ill' | 'singular' for an estimate (None -> 'ok': no

@@ -28,7 +28,11 @@ import torch
 
 from ..utils.native import build_dir
 
-SOURCES = ("panel_lu", "ea_scatter", "lsum")
+SOURCES = ("panel_lu", "ea_scatter", "lsum", "df64_spmv")
+
+# per-source nvcc flags beside the common ones: K4's error-free
+# transformations must never be contracted into FMAs
+EXTRA_FLAGS = {"df64_spmv": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -67,6 +71,7 @@ def _start_build(name: str, verbose: bool) -> subprocess.Popen:
     out = _lib_path(name)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           *EXTRA_FLAGS.get(name, ()),
            "-I", _csrc(), "-o", f"{out}.{os.getpid()}.tmp",
            os.path.join(_csrc(), f"{name}.cu")]
     if verbose:
@@ -102,13 +107,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 
 # exported launchers and their argument lists (the suffix names the
-# element type: f32 / f64 real, c64 / c128 complex)
+# element type: bf16 / f32 / f64 real, c64 / c128 complex)
 _SIGNATURES = {
     "panel_lu": {
         # F, work, N, mb, wb, regime (0 small, 1 large), thresh (one
         # float64 on the device), tiny, nzero, stream
         **{f"slu_panel_lu_{t}": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
-           for t in ("f32", "f64", "c64", "c128")},
+           for t in ("bf16", "f32", "f64", "c64", "c128")},
     },
     "ea_scatter": {
         # F, upd, so, st, pr, fronts, seg, nfronts, rc_b, mb, head_dst,
@@ -116,16 +121,24 @@ _SIGNATURES = {
         # stream
         **{f"slu_ea_scatter_{t}": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _P, _P, _P, _P, _P, _I, _P]
-           for t in ("f32", "f64", "c64", "c128")},
+           for t in ("bf16", "f32", "f64", "c64", "c128")},
     },
     "lsum": {
         # Li, Li strides (front, row), L21, L21 strides, xb, Y, UPD,
-        # t, wb, rtrim, R, y_off, u_off, stream
+        # t, wb, rtrim, R, y_off, u_off, stream; the bfloat16 lanes take
+        # a float32 workspace after UPD
         **{f"slu_lsum_{p}_{x}": [_P, _I, _I, _P, _I, _I, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _P]
            for p, x in (("f32", "f32"), ("f64", "f64"), ("f32", "f64"),
                         ("c64", "c64"), ("c128", "c128"),
                         ("c64", "c128"))},
+        **{f"slu_lsum_bf16_{x}": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _P]
+           for x in ("f32", "f64")},
+    },
+    "df64_spmv": {
+        # cols, vals_hi, vals_lo, x_hi, x_lo, y_hi, y_lo, n, w, R, stream
+        "slu_df64_ell_spmv": [_P] * 7 + [_I, _I, _I, _P],
     },
 }
 

@@ -56,7 +56,8 @@ import numpy as np
 import torch
 
 from .. import flags
-from ..device import resolve_device, torch_dtype, upload_int64
+from ..device import (dtype_info, resolve_device, solve_dtype,
+                      torch_dtype, upload_int64)
 from ..plan.plan import FactorPlan
 from . import graphs
 from .dense_lu import unit_lower_inverse, upper_inverse
@@ -71,13 +72,14 @@ def _pair_mode(dtype) -> bool:
     """Factor a complex system on stacked real/imag planes (pair
     storage) instead of native complex storage: SLU_COMPLEX_PAIR=1 and
     a complex `dtype`."""
-    return (np.dtype(dtype).kind == "c"
+    return (dtype_info(dtype).is_complex
             and flags.env_str("SLU_COMPLEX_PAIR", "0") == "1")
 
 
-def _real_dtype(dtype) -> np.dtype:
-    dtype = np.dtype(dtype)
-    return np.dtype(dtype.char.lower()) if dtype.kind == "c" else dtype
+def _real_dtype(dtype):
+    """The real dtype of `dtype`'s precision (a handle dtype: numpy, or
+    torch.bfloat16)."""
+    return dtype_info(dtype).real.handle
 
 
 def _lu_is_pair(lu) -> bool:
@@ -611,7 +613,7 @@ def _thresh_for(plan: FactorPlan, dtype) -> float:
     off)."""
     if not plan.options.replace_tiny_pivot:
         return 0.0
-    eps = float(np.finfo(np.dtype(dtype)).eps)
+    eps = dtype_info(dtype).eps
     return float(np.sqrt(eps) * plan.anorm)
 
 
@@ -908,7 +910,7 @@ def factor_seg_metas(sched, members, dtype) -> tuple:
     The last leg is the port's K1 regime (ops/panel_lu.launch_plan),
     where the reference has its Pallas promotion decision; it shapes
     what a graph captures, so it keys the graph."""
-    tdt = torch_dtype(np.dtype(dtype))
+    tdt = torch_dtype(dtype)
     return tuple(
         (g.mb, g.wb, g.n_loc, g.ea_meta, g.eb_meta,
          launch_plan(g.n_loc, g.mb, g.wb, tdt).regime)
@@ -944,8 +946,9 @@ def _factor_graphs(sched, nnz: int, dtype, device, staged: bool,
                    pair: bool = False):
     """The GraphSet of a (schedule, dtype, storage, arm): the staged
     segments' graphs or the whole-phase graph, with one FactorBuffers."""
-    key = (("staged", np.dtype(dtype).str, pair) if staged
-           else ("phase", np.dtype(dtype).str, pair, "merged"))
+    name = dtype_info(dtype).name
+    key = (("staged", name, pair) if staged
+           else ("phase", name, pair, "merged"))
     return graphs.graph_set(
         sched, key, device,
         lambda: FactorBuffers(sched, nnz, dtype, device, pair))
@@ -1095,12 +1098,18 @@ def factorize_device(plan: FactorPlan, scaled_vals: np.ndarray,
     exactly-zero pivot when tiny-pivot replacement is off (the
     reference's info=i signal).  Under SLU_COMPLEX_PAIR=1 a complex
     `dtype` factors on pair storage: the handle's flats are (2, N)
-    real planes."""
-    dtype = np.dtype(dtype)
+    real planes.  A bfloat16 `dtype` factors in bfloat16 storage
+    (K1–K3's bf16 lanes; the handle's dtype is torch.bfloat16, which
+    numpy lacks)."""
+    dtype = dtype_info(dtype).handle
     pair = _pair_mode(dtype)
     sched = get_schedule(plan)
     device = resolve_device(device)
-    vals = np.asarray(scaled_vals).astype(dtype)
+    # cast where numpy can; bfloat16 values are rounded once as they
+    # enter the factor buffers
+    vals = np.asarray(scaled_vals)
+    if isinstance(dtype, np.dtype):
+        vals = vals.astype(dtype)
     thresh = _thresh_for(plan, dtype)
     # every index set is on the device before any capture
     sched.to_device(device)
@@ -1168,9 +1177,10 @@ def _solve_device_common(lu, b: np.ndarray, trans: bool,
     bb = b[:, None] if squeeze else b
     # promote rather than cast: a float64 residual against float32
     # factors solves in float64 (the sweep reads the float32 panels),
-    # and a complex right-hand side against real factors in complex
-    xdt = np.promote_types(lu.dtype, bb.dtype)
-    bt = torch.from_numpy(np.ascontiguousarray(bb.astype(xdt)))
+    # a complex right-hand side against real factors in complex, and a
+    # bfloat16 factor's right-hand side in at least float32
+    xdt = solve_dtype(lu.dtype, bb.dtype)
+    bt = torch.from_numpy(np.ascontiguousarray(bb)).to(xdt)
     X = trisolve.solve(lu, bt, trans, eager=eager)
     out = X.cpu().numpy()
     return out[:, 0] if squeeze else out
@@ -1201,10 +1211,6 @@ def solve_device_trans(lu, b: np.ndarray,
 # update: the host loop the reference's staged arm runs, with the same
 # decisions.
 
-_DF64_TODO = ("double-word (df64) refinement is not ported yet "
-              "(ROADMAP queue 1 item 11, precision)")
-
-
 class FusedContext:
     """What the fused steps of one (schedule, factor dtype, storage,
     arm) share on one device.
@@ -1232,7 +1238,7 @@ class FusedContext:
         sched = get_schedule(plan)
         sched.to_device(device)          # before any capture
         self.plan, self.sched = plan, sched
-        self.dtype = np.dtype(dtype)
+        self.dtype = dtype_info(dtype).handle
         self.device = torch.device(device)
         self.staged = bool(staged)
         self.pair = bool(pair)
@@ -1317,7 +1323,7 @@ def fused_context(plan: FactorPlan, dtype, device, staged: bool,
     is `_pair_mode(dtype)`."""
     sched = get_schedule(plan)
     pair = _pair_mode(dtype)
-    key = (np.dtype(dtype).str, pair, bool(staged), str(device),
+    key = (dtype_info(dtype).name, pair, bool(staged), str(device),
            bool(eager))
     with _fused_lock:
         cache = sched.__dict__.setdefault("_fused", {})
@@ -1343,9 +1349,9 @@ def _fused_inputs(plan: FactorPlan, vals, b, device, dtype) -> tuple:
     complex values need a complex factor dtype."""
     v = _to_device(vals, device, "vals")
     bt = _to_device(b, device, "b")
-    if v.is_complex() and np.dtype(dtype).kind != "c":
+    if v.is_complex() and not dtype_info(dtype).is_complex:
         raise TypeError(f"complex values with factor dtype "
-                        f"{np.dtype(dtype).name}: pass a complex dtype")
+                        f"{dtype_info(dtype).name}: pass a complex dtype")
     nnz, n = len(plan.coo_rows), plan.n
     if v.shape != (nnz,) or bt.ndim != 2 or bt.shape[0] != n:
         raise ValueError(f"vals {tuple(v.shape)} and b {tuple(bt.shape)}: "
@@ -1371,7 +1377,7 @@ def make_fused_step(plan: FactorPlan, dtype=np.float64, device=None,
     solve promotes, it does not cast).  No zero-pivot check: as in the
     reference, a singular factor gives a non-finite x.  Under
     SLU_COMPLEX_PAIR=1 a complex `dtype` factors on pair storage."""
-    dtype = np.dtype(dtype)
+    dtype = dtype_info(dtype).handle
     dev = _fused_device(plan, device)
     ctx = fused_context(plan, dtype, dev, staged_enabled(get_schedule(plan)),
                         eager)
@@ -1379,7 +1385,7 @@ def make_fused_step(plan: FactorPlan, dtype=np.float64, device=None,
 
     def step(vals, b):
         v, bt = _fused_inputs(plan, vals, b, dev, dtype)
-        sdt = torch.promote_types(torch_dtype(dtype), bt.dtype)
+        sdt = solve_dtype(dtype, bt.dtype)
         with ctx.lock:
             ctx.factor(v, thresh)
             sp = ctx.solver(bt.shape[1], sdt)
@@ -1417,20 +1423,23 @@ class _Refinement:
     make_fused_solver `step_body`): the first iteration is the base
     solve and is kept whatever its berr; a later x is kept when berr
     drops; the loop stops when berr did not halve, or after
-    max_steps + 1 iterations (the host also stops at berr ≤ eps)."""
+    max_steps + 1 iterations (the host also stops at berr ≤ eps).
+    The sweeps run in the factors' working dtype (DTypeInfo.working:
+    float32 for a bfloat16 factor)."""
 
     def __init__(self, ctx: FusedContext, R: int, rdt, layout: str,
-                 max_steps: int):
+                 max_steps: int, doubleword: bool = False):
         from .spmv import DeviceSpMV
         plan, dev = ctx.plan, ctx.device
         n = plan.n
         self.rdt = torch_dtype(rdt)
-        self.fdt = torch_dtype(ctx.dtype)
+        self.sdt = dtype_info(ctx.dtype).working.torch
         real = self.rdt.to_real()        # berr is real on either lane
         self.max_steps = int(max_steps)
-        self.sp = ctx.solver(R, self.fdt)    # the sweep runs in dtype
+        self.sp = ctx.solver(R, self.sdt)
         self.spmv = DeviceSpMV.pattern(_plan_indptr(plan), plan.coo_cols,
-                                       n, rdt, dev, layout=layout)
+                                       n, rdt, dev, layout=layout,
+                                       doubleword=doubleword)
         inv_final_row = np.empty(n, dtype=np.int64)
         inv_final_row[plan.final_row] = np.arange(n)
         z = dict(dtype=self.rdt, device=dev)
@@ -1446,16 +1455,18 @@ class _Refinement:
         self.r = torch.zeros((n, R), **z)
         self.berr = torch.zeros((), dtype=real, device=dev)
         self.steps = torch.zeros((), dtype=torch.int64, device=dev)
-        self.flag = torch.zeros(2, dtype=torch.float64, device=dev)
+        # (stop, berr) for the host; float32 on the doubleword lane,
+        # whose state holds no float64 tensor
+        fl = torch.float32 if doubleword else torch.float64
+        self.flag = torch.zeros(2, dtype=fl, device=dev)
         self.card = dev.type == "cuda"
-        self.host = torch.zeros(2, dtype=torch.float64,
-                                pin_memory=self.card)
+        self.host = torch.zeros(2, dtype=fl, pin_memory=self.card)
 
     def _pre(self, r):
         """Original-order residual -> factor-order sweep right-hand
-        side, cast to the factor dtype (reference `_pre_impl`)."""
+        side, cast to the sweep dtype (reference `_pre_impl`)."""
         return (r * self.row_scale[:, None]).index_select(
-            0, self.inv_final_row).to(self.fdt)
+            0, self.inv_final_row).to(self.sdt)
 
     def _post(self, y):
         """Factor-order sweep output -> original-order correction in the
@@ -1466,25 +1477,38 @@ class _Refinement:
     def start(self) -> None:
         self.x.zero_()
         self.r.copy_(self.b)
+        self._restart()
+
+    def _restart(self) -> None:
         self.berr.fill_(float("inf"))
         self.steps.zero_()
         self.sp.bufs.B[:-1].copy_(self._pre(self.r))
 
-    def update(self) -> None:
-        x_new = self.x + self._post(self.sp.bufs.X)
-        r_new, berr_new = _resid_berr(self.spmv, self.b, x_new)
+    def _decide(self, berr_new):
+        """(better, stop) of the reference's loop for the new berr."""
         first = self.steps == 0
         improved = berr_new < self.berr * 0.5
         better = first | (berr_new < self.berr)
         stop = ((~first & ~improved)
                 | (self.steps + 1 >= self.max_steps + 1))
-        self.x.copy_(torch.where(better, x_new, self.x))
-        self.r.copy_(torch.where(better, r_new, self.r))
+        return better, stop
+
+    def _advance(self, better, berr_new, stop) -> None:
+        """berr, the step count, the next sweep's right-hand side (from
+        the kept residual) and the (stop, berr) flag."""
         self.berr.copy_(torch.where(better, berr_new, self.berr))
         self.steps += 1
         self.sp.bufs.B[:-1].copy_(self._pre(self.r))
         self.flag[0].copy_(stop)
         self.flag[1].copy_(self.berr)
+
+    def update(self) -> None:
+        x_new = self.x + self._post(self.sp.bufs.X)
+        r_new, berr_new = _resid_berr(self.spmv, self.b, x_new)
+        better, stop = self._decide(berr_new)
+        self.x.copy_(torch.where(better, x_new, self.x))
+        self.r.copy_(torch.where(better, r_new, self.r))
+        self._advance(better, berr_new, stop)
 
     def read(self) -> tuple:
         """(stop, berr) of the last update, read on the host: the one
@@ -1496,6 +1520,77 @@ class _Refinement:
             self.host.copy_(self.flag)
         stop, berr = self.host.tolist()
         return bool(stop), berr
+
+
+class _Df64Refinement(_Refinement):
+    """The doubleword loop's state (reference make_fused_solver's
+    doubleword `_core`): the solution as an fp32 (hi, lo) pair (x, xl),
+    b as (b, bl), the operator's values as (hi, lo) planes, and r the
+    fp32 residual hi + lo that the sweeps solve with.  Every floating
+    tensor is float32.  `update`: x ← df_add_f(x, d), the df64 residual
+    b − A·x through kernel K4 (ELL) or the COO lane, berr from its hi
+    plane over |A|·|x_hi| + |b_hi| (the cancellation already happened
+    in df64), then the plain loop's decisions; the host stops at
+    DF64_EPS."""
+
+    def __init__(self, ctx: FusedContext, R: int, layout: str,
+                 max_steps: int):
+        super().__init__(ctx, R, np.float32, layout, max_steps,
+                         doubleword=True)
+        self.bl = torch.zeros_like(self.b)
+        self.xl = torch.zeros_like(self.x)
+
+    def start(self) -> None:
+        self.x.zero_()
+        self.xl.zero_()
+        torch.add(self.b, self.bl, out=self.r)
+        self._restart()
+
+    def resid_berr(self, xh, xl):
+        """((r_hi, r_lo), berr) of the pair x."""
+        from ..precision.doubleword import df_add
+        axh, axl = self.spmv.matvec_df64(xh, xl)
+        den = self.spmv.absmatvec(xh.abs())
+        rh, rl = df_add((self.b, self.bl), (-axh, -axl))
+        denom = den + self.b.abs()
+        denom = torch.where(denom == 0, 1, denom)
+        return (rh, rl), (rh.abs() / denom).max()
+
+    def update(self) -> None:
+        from ..precision.doubleword import df_add_f
+        nh, nl = df_add_f((self.x, self.xl), self._post(self.sp.bufs.X))
+        (rh, rl), berr_new = self.resid_berr(nh, nl)
+        better, stop = self._decide(berr_new)
+        self.x.copy_(torch.where(better, nh, self.x))
+        self.xl.copy_(torch.where(better, nl, self.xl))
+        self.r.copy_(torch.where(better, rh + rl, self.r))
+        self._advance(better, berr_new, stop)
+
+
+def _refine_loop(ctx: FusedContext, st: _Refinement, key,
+                 eps: float) -> int:
+    """The host loop over the refinement programs of `st` (its start
+    program, then a solve and an update per iteration) until the update
+    says stop or berr ≤ eps.  Returns the iterations run.  The caller
+    holds `ctx.lock` and has loaded the factors and b."""
+    ctx.run(("start",) + key, st.start)
+    steps, berr, stop = 0, float("inf"), False
+    while not stop and berr > eps:
+        st.sp.run()
+        ctx.run(("update",) + key, st.update)
+        stop, berr = st.read()
+        steps += 1
+    return steps
+
+
+def _loop_result(ctx: FusedContext, st: _Refinement, x, steps: int):
+    """(x, berr, steps, tiny, nzero) of a fused solver call; `steps`
+    counts loop iterations, the first of which is the base solve."""
+    counts = ctx.buf.counts.to(torch.int32)
+    return (x, st.berr.clone(),
+            torch.tensor(max(steps - 1, 0), dtype=torch.int32,
+                         device=st.berr.device),
+            counts[0], counts[1])
 
 
 def _plan_indptr(plan: FactorPlan) -> np.ndarray:
@@ -1532,16 +1627,24 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
     captured at its first use; `eager=True` runs the same bodies
     eagerly there (the oracle of the card tests).  The residual mode,
     the refine dtype, the step budget and the SpMV layout resolve as
-    the reference resolves them; where the reference would run its
-    double-word lane this raises NotImplementedError (ROADMAP queue 1
-    item 11).  A complex `dtype` factors the complex system natively,
-    or on pair storage under SLU_COMPLEX_PAIR=1, and refines in the
-    complex dtype of the refine precision."""
+    the reference resolves them.  A complex `dtype` factors the complex
+    system natively, or on pair storage under SLU_COMPLEX_PAIR=1, and
+    refines in the complex dtype of the refine precision.
+
+    residual_mode="doubleword" (a real factor coarser than float64, on
+    the whole-phase arm; `_make_df64_step`): the values and b are split
+    into exact fp32 (hi, lo) planes as they come in, the factor sweep
+    reads vals_hi·s + vals_lo·s (s the float32 scale factors), the
+    residual runs in df64 through kernel K4, the solution accumulates as
+    an fp32 pair and is joined to float64 after the loop, which stops at
+    DF64_EPS.  Nothing inside the loop's programs is float64.  A
+    bfloat16 `dtype` factors in bfloat16 and sweeps in float32."""
     from ..options import IterRefine
     from ..precision.policy import resolve_residual_mode
     from . import trisolve
-    from .spmv import ell_from_csr, spmv_layout
-    dtype = np.dtype(dtype)
+    from .spmv import doubleword_layout, ell_from_csr, spmv_layout
+    info = dtype_info(dtype)
+    dtype = info.handle
     sched = get_schedule(plan)
     # ---- the residual mode (precision/policy.py), resolved as the
     # reference resolves it ----
@@ -1550,8 +1653,7 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
     if mode not in ("plain", "doubleword", "fp64"):
         raise ValueError(f"unknown residual_mode {mode!r}; expected "
                          "auto|plain|doubleword|fp64")
-    if mode == "doubleword" and (dtype.kind == "c"
-                                 or dtype.itemsize >= 8):
+    if mode == "doubleword" and (info.is_complex or info.itemsize >= 8):
         # an f64 factor gains nothing from fp32 pairs, and complex
         # systems accumulate natively
         if residual_mode == "doubleword":
@@ -1573,13 +1675,17 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
                 staged = False
             else:
                 mode = "fp64"
-    if mode == "doubleword":
-        raise NotImplementedError(_DF64_TODO)
     if refine_dtype is None:
         refine_dtype = (dtype if mode == "plain"
                         else plan.options.refine_dtype)
-    rdt = np.dtype(refine_dtype)
-    if dtype.kind == "c" and rdt.kind != "c":
+    if mode == "doubleword":
+        # the df64 pairs are the accumulator: every operand below is
+        # the float32 hi-plane dtype, the target DF64_EPS
+        refine_dtype = np.float32
+    # a plain residual of a bfloat16 factor accumulates in its sweep
+    # dtype (float32: numpy has no bfloat16)
+    rdt = dtype_info(refine_dtype).working.numpy
+    if info.is_complex and rdt.kind != "c":
         # complex system: the accumulator keeps its precision but is
         # complex (models/refine._refine_dtype)
         rdt = np.promote_types(rdt, np.complex64)
@@ -1597,6 +1703,10 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
     # exceeds the waste limit (ops/spmv.py) ----
     _, ell_w = ell_from_csr(_plan_indptr(plan), plan.coo_cols, nnz=nnz)
     layout = spmv_layout(nnz, n, ell_w)
+    if mode == "doubleword":
+        layout = doubleword_layout(layout)
+        return _make_df64_step(plan, ctx, dtype, thresh, layout,
+                               max_steps, dev)
     scale_fac = torch.from_numpy(np.asarray(
         plan.row_scale[plan.coo_rows] * plan.col_scale[plan.coo_cols],
         dtype=np.float64)).to(dev)
@@ -1614,20 +1724,8 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
             ctx.factor(v * scale_fac, thresh)
             st.spmv.load(v)
             st.b.copy_(bt)
-            ctx.run(("start",) + key, st.start)
-            steps, berr, stop = 0, float("inf"), False
-            while not stop and berr > eps:
-                st.sp.run()
-                ctx.run(("update",) + key, st.update)
-                stop, berr = st.read()
-                steps += 1
-            counts = ctx.buf.counts.to(torch.int32)
-            x, berr_t = st.x.clone(), st.berr.clone()
-        # steps counts loop iterations; the first is the base solve
-        return (x, berr_t,
-                torch.tensor(max(steps - 1, 0), dtype=torch.int32,
-                             device=dev),
-                counts[0], counts[1])
+            steps = _refine_loop(ctx, st, key, eps)
+            return _loop_result(ctx, st, st.x.clone(), steps)
 
     def resid_fn(vals, b, x):
         """The refinement residual and berr exactly as the loop computes
@@ -1644,5 +1742,44 @@ def make_fused_solver(plan: FactorPlan, dtype=np.float32,
     step.resid_fn = resid_fn
     step.spmv_layout = layout
     step.residual_mode = mode
+    step.context = ctx
+    return step
+
+
+def _make_df64_step(plan: FactorPlan, ctx: FusedContext, dtype,
+                    thresh: float, layout: str, max_steps: int,
+                    dev: torch.device):
+    """make_fused_solver's doubleword lane (reference `_core` and its
+    `step`): same contract, x joined to float64 after the loop."""
+    from ..precision.doubleword import (DF64_EPS, join_f64_tensor,
+                                        split_f64_tensor)
+    from . import trisolve
+    scale32 = torch.from_numpy(np.asarray(
+        plan.row_scale[plan.coo_rows] * plan.col_scale[plan.coo_cols],
+        dtype=np.float32)).to(dev)
+
+    def step(vals, b):
+        v, bt = _fused_inputs(plan, vals, b, dev, dtype)
+        R = bt.shape[1]
+        key = (R, "df64", layout, max_steps, trisolve.trisolve_mode())
+        # the exact fp32 split of the float64 inputs, outside the loop's
+        # programs
+        vh, vl = split_f64_tensor(v)
+        bh, bl = split_f64_tensor(bt)
+        with ctx.lock:
+            st = ctx.refinement(key, lambda: _Df64Refinement(
+                ctx, R, layout, max_steps))
+            # both planes contribute to the scaled factor values: one
+            # fp32 rounding instead of the two a hi-only product pays
+            ctx.factor(vh * scale32 + vl * scale32, thresh)
+            st.spmv.load(vh, vl)
+            st.b.copy_(bh)
+            st.bl.copy_(bl)
+            steps = _refine_loop(ctx, st, key, DF64_EPS)
+            return _loop_result(ctx, st, join_f64_tensor(st.x, st.xl),
+                                steps)
+
+    step.spmv_layout = layout
+    step.residual_mode = "doubleword"
     step.context = ctx
     return step

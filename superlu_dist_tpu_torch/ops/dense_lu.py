@@ -151,7 +151,13 @@ def partial_lu_batch(F: torch.Tensor, thresh, *, wb: int,
     """Factor the leading `wb` columns of each front of F (N, mb, mb)
     in place; `thresh` is a float or a one-element tensor.  Returns
     (F, tiny_count, zero_pivot_count), the counts as int64 scalars
-    summed over the fronts."""
+    summed over the fronts.  A bfloat16 batch is factored in float32
+    and rounded once into F: bfloat16 storage, float32 arithmetic (the
+    class the TPU kernel computed in, and K1's bf16 lane)."""
+    if F.dtype == torch.bfloat16:
+        Fw, tiny, nzero = partial_lu_batch(F.float(), thresh, wb=wb, nb=nb)
+        F.copy_(Fw)
+        return F, tiny, nzero
     N, mb, _ = F.shape
     if isinstance(thresh, torch.Tensor):
         # a one-element tensor (K1's device threshold) compares in F's
@@ -190,13 +196,21 @@ def partial_lu(F: torch.Tensor, thresh: float, *, wb: int,
     return out[0], tiny, nzero
 
 
+def _working(T: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 operand widened to float32 (its arithmetic type);
+    others as they are.  The caller rounds the result once on store."""
+    return T.float() if T.dtype == torch.bfloat16 else T
+
+
 def unit_lower_inverse(L: torch.Tensor) -> torch.Tensor:
     """inv(L) for batched unit-lower (N, w, w) — the DiagInv
     preparation (SRC/pdgssvx.c:1436-1447) that turns the solve's TRSV
-    into GEMM."""
-    return _blocked_tri_inverse(L, lower=True, unit=True)
+    into GEMM.  A bfloat16 L is inverted in float32 (the result comes
+    back in float32)."""
+    return _blocked_tri_inverse(_working(L), lower=True, unit=True)
 
 
 def upper_inverse(U: torch.Tensor) -> torch.Tensor:
-    """inv(U) for batched upper-triangular (N, w, w)."""
-    return _blocked_tri_inverse(U, lower=False, unit=False)
+    """inv(U) for batched upper-triangular (N, w, w); bfloat16 as in
+    unit_lower_inverse."""
+    return _blocked_tri_inverse(_working(U), lower=False, unit=False)

@@ -12,7 +12,8 @@ On a CUDA tensor `ea_scatter_add` launches the kernel; on a CPU tensor
 it runs the plain version (`ea_scatter_add_plain`: a masked gather plus
 `index_add_`), never the other way round.  `ea_scatter_add.launches`
 counts kernel launches (one per bucket), and `ea_scatter_add.lanes`
-the same launches per lane (f32, f64, c64, c128).
+the same launches per lane (bf16, f32, f64, c64, c128; the bf16 lane
+adds in float32 and rounds once per store).
 
 Narrow buckets (children at most NARROW wide) carry per-destination
 lists, derived on the host once per schedule (`destination_lists`):
@@ -35,8 +36,9 @@ from . import _cuda
 NARROW = 32
 
 # the kernel's lane (the suffix of its launcher's name) per element type
-LANES = {torch.float32: "f32", torch.float64: "f64",
-         torch.complex64: "c64", torch.complex128: "c128"}
+LANES = {torch.bfloat16: "bf16", torch.float32: "f32",
+         torch.float64: "f64", torch.complex64: "c64",
+         torch.complex128: "c128"}
 
 
 @dataclasses.dataclass
@@ -107,8 +109,14 @@ def flat_indices(F: torch.Tensor, b: EaBucket):
 def ea_scatter_add_plain(F: torch.Tensor, upd_buf: torch.Tensor,
                          b: EaBucket) -> None:
     """The element extend-add lane in PyTorch: masked gather from the
-    slab, `index_add_` into the fronts (in place)."""
+    slab, `index_add_` into the fronts (in place).  bfloat16 adds in
+    float32 and rounds once into F."""
     dst, src = flat_indices(F, b)
+    if F.dtype == torch.bfloat16:
+        Fw = F.view(-1).float()
+        Fw.index_add_(0, dst, upd_buf[src].float())
+        F.view(-1).copy_(Fw)
+        return
     F.view(-1).index_add_(0, dst, upd_buf[src])
 
 

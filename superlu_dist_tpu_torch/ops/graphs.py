@@ -34,12 +34,15 @@ from typing import Callable, Hashable
 import torch
 
 from . import _cuda
+from .df64_spmv import df64_ell_spmv
 from .ea_scatter import ea_scatter_add
 from .lsum import lsum_panel
 from .panel_lu import partial_lu_batch
 
-# the wrappers whose `launches` and `lanes` a replay carries forward
-COUNTED = (partial_lu_batch, ea_scatter_add, lsum_panel)
+# every wrapper whose `launches` and `lanes` a replay carries forward:
+# the factor and solve sweeps' kernels (K1–K3) and the doubleword
+# residual's (K4)
+COUNTED = (partial_lu_batch, ea_scatter_add, lsum_panel, df64_ell_spmv)
 
 _lock = threading.Lock()
 _streams: dict = {}

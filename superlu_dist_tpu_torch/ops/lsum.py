@@ -16,12 +16,16 @@ lane (panel dtype _ right-hand-side dtype, as in `LANES`).
 
 The kernel has real lanes (float32 and float64 panels, float32 panels
 with float64 right-hand sides) and complex ones (complex64, complex128,
-complex64 panels with complex128 right-hand sides).  Real panels with
-complex right-hand sides take the real lanes on the right-hand sides'
-2R real columns (`torch.view_as_real`), as the reference's `_mm_enc`
-codec does.  The transposed lane stays the PyTorch formulation
-(trisolve._fwd_member), as in the reference, whose Pallas kernel never
-took it.
+complex64 panels with complex128 right-hand sides) and bfloat16 ones
+(bfloat16 panels with float32 or float64 right-hand sides: a bfloat16
+factorization solves with a promoted right-hand side; up to
+BF16_ROWS_MAX right-hand sides each panel value is widened as it is
+read, above the float32-panel lanes run on a widened copy).  Real
+panels with complex right-hand sides take the real lanes on the
+right-hand sides' 2R real columns (`torch.view_as_real`), as the
+reference's `_mm_enc` codec does.  The transposed lane stays the
+PyTorch formulation (trisolve._fwd_member), as in the reference, whose
+Pallas kernel never took it.
 """
 
 from __future__ import annotations
@@ -39,7 +43,13 @@ LANES = {(torch.float32, torch.float32): "f32_f32",
          (torch.float32, torch.float64): "f32_f64",
          (torch.complex64, torch.complex64): "c64_c64",
          (torch.complex128, torch.complex128): "c128_c128",
-         (torch.complex64, torch.complex128): "c64_c128"}
+         (torch.complex64, torch.complex128): "c64_c128",
+         (torch.bfloat16, torch.float32): "bf16_f32",
+         (torch.bfloat16, torch.float64): "bf16_f64"}
+
+# the most right-hand sides the bfloat16 lanes' own kernel takes
+# (lsum.cu `bf16_rows`); above, a widened float32 copy of the panels
+BF16_ROWS_MAX = 4
 
 
 def _as_real_columns(t: torch.Tensor) -> torch.Tensor:
@@ -88,11 +98,18 @@ def lsum_panel(Li_p, L21_p, xb, Y, UPD, y_off: int, u_off: int,
     if rtrim > L21_p.shape[1] or Li_p.shape[:2] != (t, wb):
         raise ValueError("lsum: panel shapes do not match xb")
     lib = _cuda.library("lsum")
+    ptrs = (Li_p.data_ptr(), Li_p.stride(0), Li_p.stride(1),
+            L21_p.data_ptr(), L21_p.stride(0), L21_p.stride(1),
+            xb.data_ptr(), Y.data_ptr(), UPD.data_ptr())
+    if Li_p.dtype == torch.bfloat16:
+        # above BF16_ROWS_MAX right-hand sides the panels are widened
+        # into this float32 workspace and the float32-panel lanes run
+        work = (torch.empty(t * (wb + rtrim) * wb, dtype=torch.float32,
+                            device=xb.device)
+                if R > BF16_ROWS_MAX else None)
+        ptrs += (work.data_ptr() if work is not None else None,)
     rc = getattr(lib, f"slu_lsum_{lane}")(
-        Li_p.data_ptr(), Li_p.stride(0), Li_p.stride(1),
-        L21_p.data_ptr(), L21_p.stride(0), L21_p.stride(1),
-        xb.data_ptr(), Y.data_ptr(), UPD.data_ptr(),
-        t, wb, rtrim, R, y_off, u_off, _cuda.stream_ptr(xb))
+        *ptrs, t, wb, rtrim, R, y_off, u_off, _cuda.stream_ptr(xb))
     _cuda.check(lib, rc, "lsum")
     lsum_panel.launches += 1
     lsum_panel.lanes[lane] += 1

@@ -24,7 +24,10 @@ The shared-memory sizes and grids here mirror `run` in panel_lu.cu.
 `partial_lu_batch.launches` counts the wrapper calls that launched the
 kernel (one per group; `launch_plan(...).kernels` says how many CUDA
 kernels each call runs), and `partial_lu_batch.lanes` the same calls
-per lane (f32, f64, c64, c128).
+per lane (bf16, f32, f64, c64, c128).  The bf16 lane (a bfloat16
+factorization) runs the f32 lane on a float32 copy of the fronts and
+rounds the result once into them; its threshold is bfloat16's
+(batched._thresh_for).
 
 The kernel reads the GESP threshold on the device, from a one-element
 float64 tensor: a CUDA graph that captured the call (ops/graphs.py)
@@ -54,13 +57,15 @@ COL_TILE = 64           # columns per strip_solve CTA
 UPDATE_TILE = (128, 128, 32, 3)  # schur_update BM, BN, BK, stages
 UPDATE_TILE_COMPLEX = (64, 64, 16, 3)   # the same on the complex lanes
 SMEM_LIMIT = 232_448    # bytes of shared memory a CTA may use (H100)
+CONVERT_CTAS = 132 * 8  # grid of the bfloat16 lane's conversions
 GRID_YZ_MAX = 65535
 
 _REGIME_CODE = {"small": 0, "large": 1}
 
 # the kernel's lane (the suffix of its launcher's name) per element type
-LANES = {torch.float32: "f32", torch.float64: "f64",
-         torch.complex64: "c64", torch.complex128: "c128"}
+LANES = {torch.bfloat16: "bf16", torch.float32: "f32",
+         torch.float64: "f64", torch.complex64: "c64",
+         torch.complex128: "c128"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +88,14 @@ def launch_plan(N: int, mb: int, wb: int, dtype) -> LaunchPlan:
         raise TypeError(f"partial_lu_batch: dtype {dtype} not supported")
     if not 1 <= wb <= mb:
         raise ValueError(f"partial_lu_batch: unsupported wb={wb}, mb={mb}")
+    if dtype == torch.bfloat16:
+        # the float32 lane on a float32 copy of the fronts, between a
+        # widening and a narrowing pass (one grid-stride launch each)
+        p = launch_plan(N, mb, wb, torch.float32)
+        conv = ((min(_ceil(N * mb * mb, THREADS), CONVERT_CTAS), 1, 1),)
+        return dataclasses.replace(
+            p, kernels=p.kernels + 2, grids=conv + p.grids + conv,
+            work_elems=N * mb * mb + p.work_elems)
     it = dtype.itemsize
     if mb * mb * it <= SMALL_FRONT_BYTES:
         if mb <= WARP_MB:        # a warp per front, in registers
@@ -145,7 +158,11 @@ def partial_lu_batch(F: torch.Tensor, thresh, *, wb: int,
     lib = _cuda.library("panel_lu")
     tiny = torch.zeros(N, dtype=torch.int32, device=F.device)
     nzero = torch.zeros(N, dtype=torch.int32, device=F.device)
-    work = torch.empty(plan.work_elems, dtype=F.dtype, device=F.device)
+    # the bfloat16 lane's workspace is float32 (its working fronts and
+    # the float32 lane's own)
+    work = torch.empty(plan.work_elems, device=F.device,
+                       dtype=(torch.float32 if F.dtype == torch.bfloat16
+                              else F.dtype))
     lane = LANES[F.dtype]
     rc = getattr(lib, f"slu_panel_lu_{lane}")(F.data_ptr(), work.data_ptr() if plan.work_elems else None,
             N, mb, wb, _REGIME_CODE[plan.regime], thresh.data_ptr(),

@@ -19,6 +19,7 @@ from typing import List
 import numpy as np
 import scipy.linalg as sla
 
+from ..device import dtype_info
 from ..plan.plan import FactorPlan
 
 
@@ -43,7 +44,10 @@ def factorize_host(plan: FactorPlan, scaled_vals: np.ndarray,
     part = fp.sym.part
     ns = fp.nsuper
     xsup = part.xsup
-    eps = np.finfo(np.dtype(dtype)).eps
+    # the dtype's own eps (np.finfo: the square root below rounds as
+    # the reference's does); numpy has no bfloat16, which gssvx refuses
+    # on this backend
+    eps = np.finfo(dtype_info(dtype).numpy).eps
     thresh = np.sqrt(eps) * plan.anorm
     replace = bool(plan.options.replace_tiny_pivot)
 

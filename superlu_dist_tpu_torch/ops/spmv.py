@@ -25,10 +25,14 @@ when it is built (`device_cols`): the same arithmetic, pad value 0
 times x[n−1].  `ell_cols_from_src` itself returns the reference's
 plane unchanged.
 
-The double-word lanes of the reference (`ell_spmv_df64`,
-`coo_spmv_df64`, `DeviceSpMV.matvec_df64`) are not ported yet:
-`build(..., doubleword=True)` and `matvec_df64` raise (ROADMAP queue 1
-item 11).
+The double-word lanes (`ell_spmv_df64`, `coo_spmv_df64`,
+`DeviceSpMV.matvec_df64`): A's values and x as exact (hi, lo) fp32
+pairs (precision/doubleword.py).  The ELL lane is kernel K4 on the card
+(ops/df64_spmv.py) and its plain version on the CPU; the COO lane is
+plain PyTorch (`index_add_`, a scatter, as in the reference), and its
+row sums stay fp32-class, so a doubleword operator takes ELL whatever
+the padding unless SLU_SPMV_LAYOUT=coo is explicit
+(`doubleword_layout`).
 """
 
 from __future__ import annotations
@@ -40,9 +44,9 @@ import torch
 
 from .. import flags
 from ..device import resolve_device, torch_dtype
-
-_DF64_TODO = ("the double-word (df64) SpMV lanes are not ported yet "
-              "(ROADMAP queue 1 item 11, precision)")
+from ..precision.doubleword import (df64_coo_spmv, split_f64,
+                                    split_f64_tensor)
+from .df64_spmv import df64_ell_spmv
 
 
 def coo_spmv(rows, cols, vals, x, n: int):
@@ -107,6 +111,19 @@ def ell_spmv(ell_cols, ell_vals, x):
     return (ell_vals * xg).sum(dim=1)
 
 
+def ell_spmv_df64(ell_cols, vals_hi, vals_lo, x_hi, x_lo):
+    """Double-word lane of the ELL product: A and x as exact (hi, lo)
+    fp32 pairs, the band reduction compensated (kernel K4 on the card,
+    its plain version on the CPU).  Returns the (hi, lo) pair."""
+    return df64_ell_spmv(ell_cols, vals_hi, vals_lo, x_hi, x_lo)
+
+
+def coo_spmv_df64(rows, cols, vals_hi, vals_lo, x_hi, x_lo, n: int):
+    """Double-word COO lane: exact df64 term products, fp32-class row
+    sums (precision/doubleword.df64_coo_spmv)."""
+    return df64_coo_spmv(rows, cols, vals_hi, vals_lo, x_hi, x_lo, n)
+
+
 def _ell_waste_limit() -> float:
     try:
         return flags.env_float("SLU_SPMV_ELL_WASTE", 4.0)
@@ -124,6 +141,16 @@ def spmv_layout(nnz: int, n_rows: int, w: int) -> str:
         return mode
     return ("ell" if w * n_rows <= _ell_waste_limit() * max(nnz, 1)
             else "coo")
+
+
+def doubleword_layout(layout: str) -> str:
+    """The layout of a doubleword residual: precision outranks the
+    pad-waste heuristic, so ELL unless SLU_SPMV_LAYOUT=coo is explicit
+    (the COO lane's scatter sum stays fp32-class)."""
+    if layout != "ell" and flags.env_str(
+            "SLU_SPMV_LAYOUT", "auto").strip().lower() != "coo":
+        return "ell"
+    return layout
 
 
 @dataclasses.dataclass
@@ -145,13 +172,21 @@ class DeviceSpMV:
     ell_cols: torch.Tensor | None = None  # (n, w) device plane
     ell_vals: torch.Tensor | None = None
     ell_abs: torch.Tensor | None = None
+    # doubleword operators (build(..., doubleword=True)): the lo planes
+    # of the exact fp32 split of the float64 values, whose hi planes are
+    # `vals` / `ell_vals`
+    vals_lo: torch.Tensor | None = None
+    ell_vals_lo: torch.Tensor | None = None
 
     @classmethod
     def pattern(cls, indptr, indices, n: int, dtype, device,
-                layout: str | None = None) -> "DeviceSpMV":
+                layout: str | None = None,
+                doubleword: bool = False) -> "DeviceSpMV":
         """The operator of a CSR pattern (n × n, `indices` in CSR
         order) with zero values, in `dtype` on `device`; `load` fills
-        them.  `layout` None resolves it (spmv_layout)."""
+        them.  `layout` None resolves it (spmv_layout; a doubleword
+        operator resolves through doubleword_layout).  `doubleword`:
+        float32 (hi, lo) value planes, whatever `dtype` says."""
         indptr = np.asarray(indptr, dtype=np.int64)
         indices = np.asarray(indices, dtype=np.int64)
         nnz = len(indices)
@@ -160,7 +195,9 @@ class DeviceSpMV:
         src, w = ell_from_csr(indptr, indices, nnz=nnz)
         if layout is None:
             layout = spmv_layout(nnz, len(indptr) - 1, w)
-        tdt = torch_dtype(dtype)
+            if doubleword:
+                layout = doubleword_layout(layout)
+        tdt = torch.float32 if doubleword else torch_dtype(dtype)
         z = dict(dtype=tdt, device=device)
         # |A| is real for a complex operator too (the berr denominator)
         za = dict(dtype=tdt.to_real(), device=device)
@@ -172,38 +209,63 @@ class DeviceSpMV:
                                      n, device),
                 ell_vals=torch.zeros(src.shape, **z),
                 ell_abs=torch.zeros(src.shape, **za))
+            if doubleword:
+                ell["ell_vals_lo"] = torch.zeros(src.shape, **z)
         return cls(n=n, rows=torch.from_numpy(rows).to(device),
                    cols=torch.from_numpy(indices).to(device),
                    vals=torch.zeros(nnz, **z),
-                   abs_vals=torch.zeros(nnz, **za), layout=layout, **ell)
+                   abs_vals=torch.zeros(nnz, **za), layout=layout,
+                   vals_lo=(torch.zeros(nnz, **z) if doubleword else None),
+                   **ell)
 
     @classmethod
     def build(cls, a, dtype=None, device=None,
               doubleword: bool = False) -> "DeviceSpMV":
         """The operator of the CSRMatrix `a` (values cast to `dtype`,
-        default a's) on `device` (resolved as the entry points do)."""
-        if doubleword:
-            raise NotImplementedError(_DF64_TODO)
+        default a's) on `device` (resolved as the entry points do).
+        `doubleword`: the exact fp32 (hi, lo) split of a's float64
+        values (split on the host), for matvec_df64; the hi plane is
+        the operator's fp32 value set."""
         vals = np.asarray(a.data)
         dt = np.dtype(dtype) if dtype is not None else vals.dtype
         op = cls.pattern(a.indptr, a.indices, a.n, dt,
-                         resolve_device(device))
-        op.load(vals)
+                         resolve_device(device), doubleword=doubleword)
+        if doubleword:
+            op.load(*split_f64(vals))
+        else:
+            op.load(vals)
         return op
 
-    def load(self, vals) -> None:
+    def load(self, vals, vals_lo=None) -> None:
         """Refill the value tensors in place from `vals` (the pattern's
         values in CSR order, numpy or a tensor, cast to the operator's
-        dtype).  Starts no host sync when `vals` is on the device."""
-        if not isinstance(vals, torch.Tensor):
-            vals = torch.from_numpy(np.ascontiguousarray(vals))
-        self.vals.copy_(vals)
+        dtype).  A doubleword operator takes the (hi, lo) planes as
+        `vals` and `vals_lo`, or splits `vals` (float64) on its
+        device.  Starts no host sync when `vals` is on the device."""
+        def dev(v):
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.ascontiguousarray(v))
+            return v.to(self.vals.device)
+        if self.vals_lo is not None:
+            if vals_lo is None:
+                vals, vals_lo = split_f64_tensor(dev(vals))
+            self.vals_lo.copy_(dev(vals_lo))
+        elif vals_lo is not None:
+            raise ValueError("DeviceSpMV was not built with "
+                             "doubleword=True")
+        self.vals.copy_(dev(vals))
         torch.abs(self.vals, out=self.abs_vals)
         if self.layout == "ell":
-            ext = torch.cat([self.vals, self.vals.new_zeros(1)])
-            torch.index_select(ext, 0, self.ell_src.view(-1),
-                               out=self.ell_vals.view(-1))
+            self._ell_plane(self.vals, self.ell_vals)
             torch.abs(self.ell_vals, out=self.ell_abs)
+            if self.vals_lo is not None:
+                self._ell_plane(self.vals_lo, self.ell_vals_lo)
+
+    def _ell_plane(self, v: torch.Tensor, out: torch.Tensor) -> None:
+        """Values in CSR order -> the padded ELL plane `out` (pad slots
+        read the appended zero)."""
+        ext = torch.cat([v, v.new_zeros(1)])
+        torch.index_select(ext, 0, self.ell_src.view(-1), out=out.view(-1))
 
     def matvec(self, x):
         if self.layout == "ell":
@@ -216,4 +278,13 @@ class DeviceSpMV:
         return coo_spmv(self.rows, self.cols, self.abs_vals, x, self.n)
 
     def matvec_df64(self, x_hi, x_lo):
-        raise NotImplementedError(_DF64_TODO)
+        """y = A·x in double-word precision (build with
+        doubleword=True first); returns the (hi, lo) pair."""
+        if self.vals_lo is None:
+            raise ValueError("DeviceSpMV was not built with "
+                             "doubleword=True")
+        if self.layout == "ell":
+            return ell_spmv_df64(self.ell_cols, self.ell_vals,
+                                 self.ell_vals_lo, x_hi, x_lo)
+        return coo_spmv_df64(self.rows, self.cols, self.vals,
+                             self.vals_lo, x_hi, x_lo, self.n)

@@ -147,9 +147,13 @@ class Options:
     refine_dtype: str = "float64"
     # Refinement-residual accumulation: "auto" (plain under
     # SLU_SINGLE, refine_dtype under SLU_DOUBLE), "plain", "fp64", or
-    # "doubleword" (the host loop accumulates it in native float64).
-    # Resolved only through precision.policy.resolve_residual_mode.
-    residual_mode: str = "auto"
+    # "doubleword" (fp32 (hi, lo) pairs on the fused device loop; the
+    # host loop accumulates it in native float64).  The default comes
+    # from SLU_PREC_RESIDUAL.  Resolved only through
+    # precision.policy.resolve_residual_mode.
+    residual_mode: str = dataclasses.field(
+        default_factory=lambda: _flags.env_str(
+            "SLU_PREC_RESIDUAL", "auto") or "auto")
     # Triangular-sweep RHS dtype: None promotes the right-hand side
     # against the factor dtype (models/gssvx.py solve); an explicit "float32" keeps an fp32 pipeline end-to-end
     # instead of silently paying fp64 sweeps for an fp64 RHS.

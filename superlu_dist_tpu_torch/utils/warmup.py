@@ -23,7 +23,6 @@ from __future__ import annotations
 import time
 import warnings
 
-import numpy as np
 
 
 def staged_signatures(sched, dtype="float64"):
@@ -67,7 +66,7 @@ def warmup_staged(plan, dtype="float64", device=None,
         return {"factor_programs": 0, "captured": 0, "secs": 0.0,
                 "staged_inactive": True}
     t0 = time.perf_counter()
-    n = (B.capture_staged(plan, np.dtype(dtype), dev)
+    n = (B.capture_staged(plan, dtype, dev)
          if graphs.on_card(dev) else 0)
     return {"factor_programs": nseg, "captured": n,
             "secs": time.perf_counter() - t0}

@@ -109,6 +109,13 @@ def test_panel_lu_kernel_in_cuda_graph(card, N, mb, wb):
     assert (int(t), int(z)) == c1
 
 
+def _sweep_kernels():
+    """K1–K3, the factor and solve sweeps' kernel wrappers."""
+    from superlu_dist_tpu_torch.ops import ea_scatter, lsum, panel_lu
+    return (panel_lu.partial_lu_batch, ea_scatter.ea_scatter_add,
+            lsum.lsum_panel)
+
+
 def _buckets(card, name):
     """Every element bucket of the named matrix's schedule, on the card,
     with its group."""
@@ -443,18 +450,18 @@ def test_launch_counters_count_replays(card, monkeypatch, staged):
     """A capture records launches without counting them; every replay
     adds them: a capturing run, a replaying run and the eager loop count
     the same launches, factor and solve."""
-    from superlu_dist_tpu_torch.ops import batched, graphs
+    from superlu_dist_tpu_torch.ops import batched
     _arm(monkeypatch, staged)
     _, plan, vals = _plan(card)
     b = np.random.default_rng(4).standard_normal(plan.n)
     seen = []
     for eager in (False, False, True):
-        for f in graphs.COUNTED:
+        for f in _sweep_kernels():
             f.launches = 0
         lu = batched.factorize_device(plan, vals, np.float64, card,
                                       eager=eager)
         batched.solve_device(lu, b, eager=eager)
-        seen.append(tuple(f.launches for f in graphs.COUNTED))
+        seen.append(tuple(f.launches for f in _sweep_kernels()))
     assert seen[0] == seen[1] == seen[2]
     assert all(c > 0 for c in seen[0])
 
@@ -592,7 +599,7 @@ def test_fused_solver_graphs_equal_eager(card, monkeypatch, staged,
     the graph replays give the eager loop's x and berr bit for bit, the
     same steps and counts, berr ≤ 64·eps(f64); every kernel launched;
     the second and third calls capture no graph."""
-    from superlu_dist_tpu_torch.ops import batched, graphs
+    from superlu_dist_tpu_torch.ops import batched
     _arm(monkeypatch, staged)
     a, plan = _fused_plan(card)
     vals = torch.from_numpy(a.data).to(card)
@@ -605,7 +612,7 @@ def test_fused_solver_graphs_equal_eager(card, monkeypatch, staged,
         b = torch.from_numpy(rng.standard_normal((a.n, R))).to(card)
         ref = eager(vals, b)
         counts = []
-        for f in graphs.COUNTED:
+        for f in _sweep_kernels():
             f.launches = 0
         for call in range(3):
             out = step(vals, b)
@@ -614,7 +621,7 @@ def test_fused_solver_graphs_equal_eager(card, monkeypatch, staged,
             assert torch.equal(out[1], ref[1])
             assert [int(o) for o in out[2:]] == [int(o) for o in ref[2:]]
         assert counts[0] == counts[1] == counts[2] > 0
-        assert all(f.launches > 0 for f in graphs.COUNTED)
+        assert all(f.launches > 0 for f in _sweep_kernels())
         assert float(out[1]) <= 64 * np.finfo(np.float64).eps
         assert out[0].dtype == torch.float64 and out[0].device == card
         if dtype == "float32":
@@ -1176,3 +1183,243 @@ def test_pair_factorization_on_card_matches_pair_lu(card, monkeypatch):
     monkeypatch.delenv("SLU_COMPLEX_PAIR")
     x2, _, _ = st.gssvx(st.Options(fact=st.Fact.FACTORED), a, b, lu=lu)
     assert np.max(np.abs(x2 - x0)) <= 1e-10 * np.max(np.abs(x0))
+
+
+# --------------------------------------------------------------------
+# the precision subsystem on the card: K4 (the doubleword residual
+# product) bit for bit against its plain version, the bfloat16 lanes of
+# K1–K3 against theirs, the doubleword fused solver, the bfloat16
+# escalation ladder
+# --------------------------------------------------------------------
+
+def _df64_operator(card, which):
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops.spmv import DeviceSpMV
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
+    a = laplacian_3d(48) if which == "k48" else _ragged()
+    return DeviceSpMV.build(a, device=card, doubleword=True), a
+
+
+@pytest.mark.parametrize("R", [1, 64])
+@pytest.mark.parametrize("which", ["k48", "ragged"])
+def test_df64_kernel_bitwise_equals_plain(card, which, R):
+    """K4 on laplacian_3d(48)'s ELL operator (w = 7) and on a ragged one
+    (pad slots in every row): the hi and lo words of its product equal
+    the plain version's bit for bit (the same operations in the same
+    order, none contracted), and the joined product is the float64
+    product to df64 class (1e-14 relative)."""
+    from superlu_dist_tpu_torch.ops import df64_spmv
+    from superlu_dist_tpu_torch.precision import doubleword as dw
+    m, a = _df64_operator(card, which)
+    g = torch.Generator(device=card).manual_seed(R)
+    x = torch.randn(a.n, R, generator=g, dtype=torch.float64, device=card)
+    xh, xl = dw.split_f64_tensor(x)
+    args = (m.ell_cols, m.ell_vals, m.ell_vals_lo, xh, xl)
+    before = df64_spmv.df64_ell_spmv.launches
+    yk = df64_spmv.df64_ell_spmv(*args)
+    yp = dw.df64_ell_spmv(*args)
+    torch.cuda.synchronize()
+    assert df64_spmv.df64_ell_spmv.launches == before + 1
+    for k, p in zip(yk, yp):
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+    ref = torch.from_numpy(a.to_scipy() @ x.cpu().numpy())
+    assert _rel(dw.join_f64_tensor(*yk).cpu(), ref) < 1e-14
+
+
+EPS_F32 = 2.0 ** -23
+
+
+def _bf16_ulp(x):
+    """Elementwise: the spacing of bfloat16 values (8 significant bits)
+    at |x|, 2^(e - 8) for |x| in [2^(e-1), 2^e); 0 where x is 0."""
+    m, e = torch.frexp(x.double().abs())
+    return torch.where(m == 0, torch.zeros_like(m),
+                       torch.exp2((e - 8).double()))
+
+
+def _bf16_excess(got, want, limit) -> float:
+    """max over elements of |got - want| / limit (0 where equal): the
+    check passes at ≤ 1 (chip_smoke.py holds the same)."""
+    d = (got.double() - want.double()).abs()
+    return float(torch.where(d == 0, torch.zeros_like(d), d / limit).max())
+
+
+def _k1_bf16_limit(got, want, wb):
+    """Per element: 2 bfloat16 spacings of the larger of the two (each
+    side factors in float32 and rounds once, in its own order) plus 64
+    float32 units of the front's largest |value| in the element's block
+    (the L panel, rows ≥ wb of the first wb columns, or the rest)."""
+    W = want.double().abs()
+    mb = W.shape[-1]
+    lmask = torch.zeros(mb, mb, dtype=torch.bool, device=W.device)
+    lmask[wb:, :wb] = True
+    s_l = W.masked_fill(~lmask, 0).amax(dim=(1, 2), keepdim=True)
+    s_r = W.masked_fill(lmask, 0).amax(dim=(1, 2), keepdim=True)
+    floor = 64 * EPS_F32 * torch.where(lmask, s_l, s_r)
+    return 2 * _bf16_ulp(torch.maximum(got.double().abs(), W)) + floor
+
+
+def _ea_bf16_limit(F0, upd, b):
+    """Per element: (c + 1) bfloat16 spacings of S, c the slab values
+    added there and S |F0| plus their |values| (wide buckets round once
+    per record in the kernel, once in the plain version)."""
+    from superlu_dist_tpu_torch.ops import ea_scatter
+    dst, src = ea_scatter.flat_indices(F0, b)
+    c = torch.zeros(F0.numel(), dtype=torch.float64, device=F0.device)
+    c.index_add_(0, dst, torch.ones(dst.numel(), dtype=torch.float64,
+                                    device=F0.device))
+    S = F0.double().abs().reshape(-1).index_add_(0, dst,
+                                                 upd[src].double().abs())
+    return ((c + 1) * _bf16_ulp(S)).view(F0.shape)
+
+
+@pytest.mark.parametrize("N,mb,wb", [(4096, 16, 8), (64, 128, 128),
+                                     (2, 363, 96), (2, 1536, 512)])
+def test_panel_lu_bf16_kernel_matches_plain(card, N, mb, wb):
+    """K1's bf16 lane (the f32 lane on a widened copy, rounded once
+    into F) against the plain version (the same in PyTorch): each
+    element within its own limit (`_k1_bf16_limit`: 2 bfloat16 spacings
+    plus 64 float32 units of its block's max), the counters equal."""
+    from superlu_dist_tpu_torch.ops import dense_lu, panel_lu
+    g = torch.Generator(device=card).manual_seed(mb)
+    F0 = torch.randn(N, mb, mb, generator=g, dtype=torch.bfloat16,
+                     device=card)
+    F0 += mb * torch.eye(mb, dtype=torch.bfloat16, device=card)
+    F0[0, 2, :] = 0
+    F0[0, :, 2] = 0
+    thresh = 0.1
+    F1, F2 = F0.clone(), F0.clone()
+    panel_lu.partial_lu_batch.lanes.clear()
+    _, t1, z1 = panel_lu.partial_lu_batch(F1, thresh, wb=wb)
+    _, t2, z2 = dense_lu.partial_lu_batch(F2, thresh, wb=wb)
+    torch.cuda.synchronize()
+    assert dict(panel_lu.partial_lu_batch.lanes) == {"bf16": 1}
+    assert (int(t1), int(z1)) == (int(t2), int(z2)) == (1, 0)
+    assert _bf16_excess(F1, F2, _k1_bf16_limit(F1, F2, wb)) <= 1.0
+
+
+def test_ea_scatter_bf16_kernel_matches_plain(card):
+    """K2's bf16 lane on every bucket of laplacian_3d(12)'s schedule
+    (narrow and banded variants): adds in float32, one rounding per
+    store, each element within its own limit of the plain version
+    (`_ea_bf16_limit`: a bfloat16 spacing per rounding)."""
+    from superlu_dist_tpu_torch.ops import ea_scatter
+    sched, buckets = _buckets(card, ("laplacian_3d", 12))
+    g0 = torch.Generator(device=card).manual_seed(5)
+    upd = torch.randn(sched.upd_total + sched.upd_pad, generator=g0,
+                      dtype=torch.bfloat16, device=card)
+    for grp, b in buckets:
+        F0 = torch.randn(grp.n_loc, grp.mb, grp.mb, generator=g0,
+                         dtype=torch.bfloat16, device=card)
+        F1, F2 = F0.clone(), F0.clone()
+        ea_scatter.ea_scatter_add(F1, upd, b)
+        ea_scatter.ea_scatter_add_plain(F2, upd, b)
+        assert _bf16_excess(F1, F2, _ea_bf16_limit(F0, upd, b)) <= 1.0, \
+            (grp.mb, b.rc_b)
+
+
+@pytest.mark.parametrize("xd", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R", [1, 3, 7, 64, 70])
+@pytest.mark.parametrize("t,wb,mb,rtrim", [(7, 32, 160, 120),
+                                           (1, 128, 128, 0),
+                                           (2, 512, 1600, 1000)])
+def test_lsum_bf16_kernel_matches_plain(card, xd, R, t, wb, mb, rtrim):
+    """K3's bf16_f32 and bf16_f64 lanes (bfloat16 panels widened as
+    they are read up to 4 right-hand sides, lanes over the depth; above,
+    the float32-panel lanes on a widened copy; ragged last tiles at 3,
+    7 and 70) against the plain version: the right-hand side's
+    tolerance (1e-4 float32, 1e-10 float64), the lane each call took,
+    nothing written outside the group's rows."""
+    from superlu_dist_tpu_torch.ops import lsum
+    g = torch.Generator(device=card).manual_seed(t * 100 + R)
+    Lp = (torch.randn(t, mb, wb, generator=g, device=card) / wb).to(
+        torch.bfloat16)
+    Li = (torch.randn(t, wb, wb, generator=g, device=card) / wb).to(
+        torch.bfloat16)
+    xb = torch.randn(t, wb, R, generator=g, dtype=xd, device=card)
+    bufs = [(torch.zeros(5 + t * wb, R, dtype=xd, device=card),
+             torch.zeros(9 + t * rtrim, R, dtype=xd, device=card))
+            for _ in range(2)]
+    lsum.lsum_panel.lanes.clear()
+    lsum.lsum_panel(Li, Lp[:, wb:], xb, *bufs[0], 4, 8, rtrim)
+    lsum.lsum_panel_plain(Li, Lp[:, wb:], xb, *bufs[1], 4, 8, rtrim)
+    torch.cuda.synchronize()
+    lane = "bf16_f32" if xd == torch.float32 else "bf16_f64"
+    assert dict(lsum.lsum_panel.lanes) == {lane: 1}
+    tol = TOL[xd]
+    assert _rel(bufs[0][0], bufs[1][0]) < tol
+    assert _rel(bufs[0][1], bufs[1][1]) < tol
+    assert not bufs[0][0][:4].any() and not bufs[0][0][4 + t * wb:].any()
+    assert not bufs[0][1][:8].any()
+    assert not bufs[0][1][8 + t * rtrim:].any()
+
+
+@pytest.mark.parametrize("R", [1, 4])
+def test_df64_fused_solver_on_card_matches_cpu(card, R):
+    """make_fused_solver(..., residual_mode="doubleword") on
+    laplacian_3d(10), float32 factor: the graph replays equal the eager
+    bodies bit for bit on the card, K4 launched on every call, no graph
+    captured after the first call, berr ≤ DF64_EPS, and x within 1e-11
+    (relative max-norm) of the same solver with device="cpu" (the
+    kernels against their plain versions, both at the df64 class)."""
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.ops import batched, df64_spmv
+    from superlu_dist_tpu_torch.precision.doubleword import DF64_EPS
+    from superlu_dist_tpu_torch.utils.testmat import laplacian_3d
+    a = laplacian_3d(10)
+    plan = st.plan_factorization(a, st.Options(factor_dtype="float32"),
+                                 device=card)
+    cpu_plan = st.plan_factorization(a, st.Options(factor_dtype="float32"),
+                                     device="cpu")
+    b = a.to_scipy() @ np.random.default_rng(30).standard_normal((a.n, R))
+    kw = dict(residual_mode="doubleword")
+    step = batched.make_fused_solver(plan, "float32", **kw)
+    eager = batched.make_fused_solver(plan, "float32", eager=True, **kw)
+    cpu = batched.make_fused_solver(cpu_plan, "float32", device="cpu", **kw)
+    ref = eager(a.data, b)
+    xc, bc, *_ = cpu(a.data, b)
+    counts = []
+    for _ in range(3):
+        df64_spmv.df64_ell_spmv.launches = 0
+        out = step(a.data, b)
+        counts.append(step.context.graph_count())
+        assert df64_spmv.df64_ell_spmv.launches > 0
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert counts[0] == counts[1] == counts[2] > 0
+    assert float(out[1]) <= DF64_EPS and float(bc) <= DF64_EPS
+    assert out[0].dtype == torch.float64
+    assert _rel(out[0].cpu(), xc) < 1e-11
+
+
+def test_bf16_gssvx_on_card_climbs_the_ladder(card):
+    """A bfloat16 gssvx on the reference's ill-conditioned case (cond
+    1e4, cond·eps(bf16) ≫ 1): the bf16 lanes of K1 and K3 launched
+    (the dense 40 x 40 system is one front: no extend-add, so no K2),
+    the first hop bfloat16 -> float32, berr ≤ 64·eps(f64)."""
+    import scipy.sparse as sp
+    import superlu_dist_tpu_torch as st
+    from superlu_dist_tpu_torch.numerics import health
+    from superlu_dist_tpu_torch.ops import lsum, panel_lu
+    rng = np.random.default_rng(3)
+    n = 40
+    u, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    v, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    a = st.csr_from_scipy(sp.csr_matrix(u @ np.diag(np.logspace(0, -4, n))
+                                        @ v.T))
+    b = a.to_scipy() @ np.random.default_rng(4).standard_normal(n)
+    hops = []
+    orig = health.record
+    health.record = lambda ev, **kw: hops.append(
+        (kw["factor_dtype"], kw["to_dtype"])) if ev == "escalation" \
+        else None
+    try:
+        for f in _complex_counters():
+            f.lanes.clear()
+        x, lu, stats = st.gssvx(st.Options(factor_dtype="bfloat16",
+                                           max_refine_steps=16), a, b)
+    finally:
+        health.record = orig
+    assert panel_lu.partial_lu_batch.lanes["bf16"] > 0
+    assert lsum.lsum_panel.lanes["bf16_f64"] > 0
+    assert stats.escalations >= 1 and hops[0] == ("bfloat16", "float32")
+    assert stats.berr <= 64 * np.finfo(np.float64).eps

@@ -134,13 +134,39 @@ def test_device_spmv_matches_scipy_and_reference(monkeypatch, layout,
 
 
 def test_device_spmv_doubleword_names_item_11():
+    """The doubleword operator of item 11 (ported): DeviceSpMV.build
+    (doubleword=True) on convection_diffusion_2d(12) has the reference's
+    layout and (hi, lo) ELL value planes, bit for bit, and matvec_df64
+    equals the reference's run eagerly, hi and lo words, at nrhs 1 and
+    3.  An operator built without the planes refuses matvec_df64 in
+    both packages."""
+    import jax
+    import jax.numpy as jnp
+    from superlu_dist_tpu.ops.spmv import DeviceSpMV as JSpMV
     from superlu_dist_tpu_torch.ops.spmv import DeviceSpMV
-    _, at = _pair("convdiff12")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        DeviceSpMV.build(at, device="cpu", doubleword=True)
-    m = DeviceSpMV.build(at, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        m.matvec_df64(None, None)
+    from superlu_dist_tpu_torch.precision.doubleword import split_f64
+    aj, at = _pair("convdiff12")
+    mt = DeviceSpMV.build(at, device="cpu", doubleword=True)
+    mj = JSpMV.build(aj, doubleword=True)
+    assert mt.layout == mj.layout == "ell"
+    for t, j in ((mt.ell_vals, mj.ell_vals),
+                 (mt.ell_vals_lo, mj.ell_vals_lo)):
+        assert t.dtype == torch.float32
+        assert np.array_equal(t.numpy(), np.asarray(j))
+    rng = np.random.default_rng(3)
+    for nrhs in (1, 3):
+        xh, xl = split_f64(rng.standard_normal((at.n, nrhs)))
+        with jax.disable_jit():
+            yj = mj.matvec_df64(jnp.asarray(xh), jnp.asarray(xl))
+        yt = mt.matvec_df64(torch.from_numpy(xh), torch.from_numpy(xl))
+        for t, j in zip(yt, yj):
+            assert np.array_equal(t.numpy().view(np.int32),
+                                  np.asarray(j).view(np.int32))
+    with pytest.raises(ValueError, match="doubleword=True"):
+        DeviceSpMV.build(at, device="cpu").matvec_df64(
+            torch.from_numpy(xh), torch.from_numpy(xl))
+    with pytest.raises(ValueError, match="doubleword=True"):
+        JSpMV.build(aj).matvec_df64(jnp.asarray(xh), jnp.asarray(xl))
 
 
 # --------------------------------------------------------------------
@@ -259,14 +285,18 @@ def test_fused_decisions_match_reference(monkeypatch, case):
 def test_doubleword_resolution_matches_reference(monkeypatch, case):
     """Where the reference resolves a double-word residual to fp64 the
     port does too; where it raises, the port raises the same error;
-    where it would run its df64 lane, the port raises
-    NotImplementedError naming item 11."""
+    where it runs its df64 lane (item 11, ported), the port runs its
+    own: the same mode and layout, steps, tiny and zero-pivot counts,
+    berr at most DF64_EPS in both, and x within 1e-10 of the
+    reference's (relative max-norm; the reference's loop is jitted, so
+    bits are not compared)."""
     from superlu_dist_tpu.ops import batched as jb
     from superlu_dist_tpu_torch.ops import batched as tb
+    from superlu_dist_tpu_torch.precision.doubleword import DF64_EPS
     monkeypatch.setenv("SLU_STAGED", "0")
     policy = case != "staged_explicit" and case != "df64_lane"
-    pj, pt, _, _ = _plans("lap2d12", **({"residual_mode": "doubleword"}
-                                        if policy else {}))
+    pj, pt, aj, at = _plans("lap2d12", **({"residual_mode": "doubleword"}
+                                          if policy else {}))
     kw = {"f64_factor": dict(dtype="float64"),
           "staged_default": dict(dtype="float32"),
           "staged_explicit": dict(dtype="float32", staged=True,
@@ -284,8 +314,16 @@ def test_doubleword_resolution_matches_reference(monkeypatch, case):
     mode = jb.make_fused_solver(pj, **kw).residual_mode
     if case == "df64_lane":
         assert mode == "doubleword"
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tb.make_fused_solver(pt, device="cpu", **kw)
+        b = _rhs(at.n, 1, seed=4)
+        (xj, bj, sj, tj, zj), mj, lj = _jax_solve(("df64", case), pj, aj,
+                                                  b, **kw)
+        got, step = _port_solve(pt, at, b, **kw)
+        xt, bt, s_t, tt, zt = got
+        assert (step.residual_mode, step.spmv_layout) == (mj, lj)
+        assert xt.dtype == xj.dtype == np.float64
+        assert rel_maxnorm(xt, xj) <= TOL[xj.dtype]
+        assert float(bj) <= DF64_EPS and float(bt) <= DF64_EPS
+        assert (int(s_t), int(tt), int(zt)) == (int(sj), int(tj), int(zj))
         return
     assert mode == "fp64"
     assert tb.make_fused_solver(pt, device="cpu", **kw).residual_mode \
@@ -296,6 +334,7 @@ def test_doubleword_resolution_matches_reference(monkeypatch, case):
     with pytest.raises(ValueError, match="fp64"):
         tb.make_fused_solver(pt, dtype="float64",
                              residual_mode="doubleword", device="cpu")
+
 
 
 def test_fused_step_matches_reference():

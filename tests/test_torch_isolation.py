@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package,
-and its entry points never fall back to the CPU on their own."""
+"""The port stands alone: it imports neither jax nor the JAX package
+(nor ml_dtypes, which numpy would need for bfloat16), and its entry
+points never fall back to the CPU on their own."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "superlu_dist_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "superlu_dist_tpu")
+FORBIDDEN = ("jax", "jaxlib", "superlu_dist_tpu", "ml_dtypes")
 
 
 def _forbidden(mod: str) -> bool:
